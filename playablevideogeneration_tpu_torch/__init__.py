@@ -1,0 +1,12 @@
+"""PyTorch/CUDA port of CADDY (playable video generation) for NVIDIA Hopper.
+
+The JAX package ``playablevideogeneration_tpu`` is the reference: every
+module here mirrors a module there by path and name, and the tests hold
+the two against each other on the same weights and inputs.  This package
+imports neither JAX nor the JAX package.
+
+The port so far covers the interactive play route of the model
+(``models.caddy.Caddy.play_step`` and ``inference.play_session``) with two
+hand-written CUDA kernels for ``sm_90a`` under ``ops/cuda``: the ConvLSTM
+gate update and the frozen-BatchNorm + LeakyReLU epilogue.
+"""

@@ -1,0 +1,211 @@
+"""Convolutional building blocks in NCHW.
+
+Counterpart of ``playablevideogeneration_tpu/models/layers.py``; submodules
+carry the Flax names (``conv1``, ``bn1``, ``shortcut_conv``, ``cell.gates``
+...) so the weight bridge (``utils/jax_weights.py``) is a renaming.
+
+This slice serves the play route, so every BatchNorm uses its frozen
+statistics.  A BatchNorm followed by LeakyReLU runs as the fused CUDA
+epilogue (``ops/cuda/fused_norm_act.py``), as the JAX
+package selects ``_FrozenBNLeakyRelu``; the ConvLSTM gate update runs as the
+fused CUDA gate kernel (``ops/cuda/convlstm_gates.py``).
+
+The JAX package's TPU layout rewrites (``_SubpixelConv``, ``_FusedUpConv``,
+the deconv and phase forms of the x2 bilinear, activation tags for remat)
+compute the plain op tap for tap, so the port has only the plain op.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from playablevideogeneration_tpu_torch.ops.cuda.convlstm_gates import fused_lstm_gates
+from playablevideogeneration_tpu_torch.ops.cuda.fused_norm_act import (
+    NEGATIVE_SLOPE,
+    fold_batch_norm,
+    fused_scale_shift_leaky_relu,
+)
+
+EPS = 1e-5
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """LeakyReLU with the reference's fixed negative slope 0.2."""
+    return F.leaky_relu(x, NEGATIVE_SLOPE)
+
+
+def avg_pool(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Average pool with window == stride == factor (identity for factor 1)."""
+    return x if factor == 1 else F.avg_pool2d(x, factor)
+
+
+def upsample_bilinear(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """Bilinear x``scale`` upsampling, half-pixel centres (align_corners=False)."""
+    return F.interpolate(x, scale_factor=scale, mode="bilinear", align_corners=False)
+
+
+def conv2d(in_planes: int, out_planes: int, kernel_size: int, bias: bool,
+           dtype: torch.dtype) -> nn.Conv2d:
+    """Stride-1 conv with Flax ``SAME`` padding for an odd kernel."""
+    return nn.Conv2d(in_planes, out_planes, kernel_size, padding=kernel_size // 2,
+                     bias=bias, dtype=dtype)
+
+
+class BatchNorm(nn.Module):
+    """Affine BatchNorm over channels with frozen f32 statistics, eps 1e-5.
+
+    ``activation='leaky_relu'`` appends LeakyReLU(0.2) and runs the pair as
+    the fused epilogue kernel over the folded scale/shift, rounded to the
+    input's dtype first exactly as the JAX path rounds them
+    (``_FrozenBNLeakyRelu``).  Every BatchNorm of the model is affine, so
+    the JAX block's ``affine=False`` is not ported.
+    """
+
+    def __init__(self, features: int, activation: Optional[str] = None):
+        super().__init__()
+        self.activation = activation
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.activation == "leaky_relu":
+            a, b = fold_batch_norm(self.weight, self.bias, self.running_mean,
+                                   self.running_var, EPS)
+            return fused_scale_shift_leaky_relu(x, a.to(x.dtype).float(),
+                                                b.to(x.dtype).float())
+        return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                            self.bias, False, 0.0, EPS)
+
+
+class ResidualBlock(nn.Module):
+    """conv3x3 -> avgpool(d) -> BN -> lrelu -> conv3x3 -> BN (+ shortcut) -> add -> lrelu.
+
+    Shortcut = conv1x1 -> avgpool(d) -> BN when the shape changes.  The JAX
+    block's ``last_affine`` and ``drop_final_activation`` keep their
+    defaults everywhere in the model and are not ported.
+    """
+
+    def __init__(self, in_planes: int, out_planes: int, downsample_factor: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.downsample_factor = downsample_factor
+        self.conv1 = conv2d(in_planes, out_planes, 3, False, dtype)
+        self.bn1 = BatchNorm(out_planes, activation="leaky_relu")
+        self.conv2 = conv2d(out_planes, out_planes, 3, False, dtype)
+        self.bn2 = BatchNorm(out_planes)
+        self.has_shortcut = downsample_factor != 1 or in_planes != out_planes
+        if self.has_shortcut:
+            self.shortcut_conv = conv2d(in_planes, out_planes, 1, False, dtype)
+            self.shortcut_bn = BatchNorm(out_planes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.bn1(avg_pool(self.conv1(x), self.downsample_factor))
+        out = self.bn2(self.conv2(out))
+        identity = x
+        if self.has_shortcut:
+            identity = self.shortcut_bn(
+                avg_pool(self.shortcut_conv(x), self.downsample_factor))
+        return leaky_relu(out + identity)
+
+
+class SameBlock(nn.Module):
+    """conv3x3 -> optional avgpool -> BN -> lrelu."""
+
+    def __init__(self, in_planes: int, out_planes: int, downsample_factor: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.downsample_factor = downsample_factor
+        self.conv1 = conv2d(in_planes, out_planes, 3, False, dtype)
+        self.bn1 = BatchNorm(out_planes, activation="leaky_relu")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.bn1(avg_pool(self.conv1(x), self.downsample_factor))
+
+
+class UpBlock(nn.Module):
+    """bilinear x2 -> conv3x3 -> BN -> lrelu; ``late_upscaling`` moves the
+    interpolation after the activation.  Every UpBlock of the model is a
+    bilinear x2 with a 3x3 kernel, so the JAX block's other modes are not
+    ported."""
+
+    def __init__(self, in_planes: int, out_planes: int, late_upscaling: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.late_upscaling = late_upscaling
+        self.conv = conv2d(in_planes, out_planes, 3, False, dtype)
+        self.norm = BatchNorm(out_planes, activation="leaky_relu")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.late_upscaling:
+            x = upsample_bilinear(x, 2)
+        x = self.norm(self.conv(x))
+        if self.late_upscaling:
+            x = upsample_bilinear(x, 2)
+        return x
+
+
+class FinalBlock(nn.Module):
+    """conv -> tanh, producing an image in [-1, 1]."""
+
+    def __init__(self, in_planes: int, out_planes: int, kernel_size: int = 3,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv = conv2d(in_planes, out_planes, kernel_size, True, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(self.conv(x))
+
+
+def channelwise_concat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Concatenates NCHW tensors and (B, F) vectors along channels,
+    broadcasting vectors over the spatial dims."""
+    spatial = next((t for t in tensors if t.dim() == 4), None)
+    if spatial is None:
+        raise ValueError("At least one input must have spatial dimensions")
+    height, width = spatial.shape[2], spatial.shape[3]
+    return torch.cat([
+        t if t.dim() == 4 else t[:, :, None, None].expand(-1, -1, height, width)
+        for t in tensors], dim=1)
+
+
+LSTMState = Tuple[torch.Tensor, torch.Tensor]
+
+
+class ConvLSTMCell(nn.Module):
+    """Convolutional LSTM cell: one fused 4C-channel 3x3 gate conv over
+    ``cat([x, h])`` (gates in i, f, o, g order), then the fused gate kernel."""
+
+    def __init__(self, in_planes: int, out_planes: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.gates = conv2d(in_planes + out_planes, 4 * out_planes, 3, True, dtype)
+
+    def forward(self, carry: LSTMState, x: torch.Tensor) -> Tuple[LSTMState, torch.Tensor]:
+        h, c = carry
+        new_h, new_c = fused_lstm_gates(self.gates(torch.cat([x, h], dim=1)), c)
+        return (new_h, new_c), new_h
+
+
+class ConvLSTM(nn.Module):
+    """ConvLSTM with learnable (C, H, W) initial states."""
+
+    def __init__(self, in_planes: int, out_planes: int, height: int, width: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.cell = ConvLSTMCell(in_planes, out_planes, dtype)
+        self.initial_hidden_state = nn.Parameter(torch.zeros(out_planes, height, width))
+        self.initial_cell_state = nn.Parameter(torch.zeros(out_planes, height, width))
+
+    def init_carry(self, batch_size: int) -> LSTMState:
+        """The initial states in the model dtype, repeated over the batch
+        into contiguous tensors."""
+        return tuple(s.detach().to(self.dtype)[None].repeat(batch_size, 1, 1, 1)
+                     for s in (self.initial_hidden_state, self.initial_cell_state))
+
+    def forward(self, carry: LSTMState, x: torch.Tensor) -> Tuple[LSTMState, torch.Tensor]:
+        return self.cell(carry, x)
