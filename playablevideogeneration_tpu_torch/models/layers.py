@@ -4,11 +4,18 @@ Counterpart of ``playablevideogeneration_tpu/models/layers.py``; submodules
 carry the Flax names (``conv1``, ``bn1``, ``shortcut_conv``, ``cell.gates``
 ...) so the weight bridge (``utils/jax_weights.py``) is a renaming.
 
-This slice serves the play route, so every BatchNorm uses its frozen
-statistics.  A BatchNorm followed by LeakyReLU runs as the fused CUDA
-epilogue (``ops/cuda/fused_norm_act.py``), as the JAX
-package selects ``_FrozenBNLeakyRelu``; the ConvLSTM gate update runs as the
-fused CUDA gate kernel (``ops/cuda/convlstm_gates.py``).
+Parameters are f32 and the blocks compute in their ``dtype``, as every
+JAX layer does with ``param_dtype=float32``: a convolution casts its f32
+weights to the compute dtype in ``forward``, so the gradients and the
+optimizer stay in f32.
+
+A BatchNorm follows its module's ``training`` flag: in training it
+normalises with the batch statistics and folds them into its running
+statistics as flax does; in evaluation it uses the running statistics, and
+a BatchNorm followed by LeakyReLU runs as the fused CUDA epilogue
+(``ops/cuda/fused_norm_act.py``), as the JAX package selects
+``_FrozenBNLeakyRelu``.  The ConvLSTM gate update runs as the fused CUDA
+gate kernels (``ops/cuda/convlstm_gates.py``), forward and backward.
 
 The JAX package's TPU layout rewrites (``_SubpixelConv``, ``_FusedUpConv``,
 the deconv and phase forms of the x2 bilinear, activation tags for remat)
@@ -16,7 +23,8 @@ compute the plain op tap for tap, so the port has only the plain op.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import contextlib
+from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +38,9 @@ from playablevideogeneration_tpu_torch.ops.cuda.fused_norm_act import (
 )
 
 EPS = 1e-5
+# flax's BatchNorm(momentum=0.9) keeps 0.9 of the running statistic per
+# update: torch's BatchNorm2d calls the same average momentum=0.1.
+MOMENTUM = 0.9
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -47,32 +58,91 @@ def upsample_bilinear(x: torch.Tensor, scale: int) -> torch.Tensor:
     return F.interpolate(x, scale_factor=scale, mode="bilinear", align_corners=False)
 
 
-def conv2d(in_planes: int, out_planes: int, kernel_size: int, bias: bool,
-           dtype: torch.dtype) -> nn.Conv2d:
-    """Stride-1 conv with Flax ``SAME`` padding for an odd kernel."""
-    return nn.Conv2d(in_planes, out_planes, kernel_size, padding=kernel_size // 2,
-                     bias=bias, dtype=dtype)
+class _CastParameters:
+    """f32 ``weight`` and ``bias`` used in ``compute_dtype``.
+
+    When the parameter takes a gradient, the cast is part of the graph, so
+    the gradient stays f32.  Otherwise (gradients off, as on the play
+    route, or a frozen parameter, as in VGG) a cast is kept and reused
+    while its parameter is unchanged (same storage, same version counter,
+    which every in-place update such as an optimizer step advances), so
+    such a call launches no casts."""
+
+    compute_dtype: torch.dtype
+
+    def _cast(self, name: str) -> Optional[torch.Tensor]:
+        p = getattr(self, name)
+        if (p is None or p.dtype == self.compute_dtype
+                or (torch.is_grad_enabled() and p.requires_grad)):
+            return None if p is None else p.to(self.compute_dtype)
+        key = (p.data_ptr(), p._version)
+        cached = self.__dict__.setdefault("_casts", {}).get(name)
+        if cached is None or cached[0] != key:
+            cached = (key, p.detach().to(self.compute_dtype))
+            self._casts[name] = cached
+        return cached[1]
+
+
+class Conv2d(_CastParameters, nn.Conv2d):
+    """Stride-1 conv with Flax ``SAME`` padding for an odd kernel, f32
+    parameters and ``dtype`` compute."""
+
+    def __init__(self, in_planes: int, out_planes: int, kernel_size: int, bias: bool,
+                 dtype: torch.dtype):
+        super().__init__(in_planes, out_planes, kernel_size, padding=kernel_size // 2,
+                         bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x.to(self.compute_dtype), self._cast("weight"), self._cast("bias"),
+                        padding=self.padding)
+
+
+class Linear(_CastParameters, nn.Linear):
+    """Dense layer with f32 parameters and ``dtype`` compute (flax
+    ``nn.Dense(dtype=..., param_dtype=float32)``)."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.compute_dtype), self._cast("weight"), self._cast("bias"))
 
 
 class BatchNorm(nn.Module):
-    """Affine BatchNorm over channels with frozen f32 statistics, eps 1e-5.
+    """Affine BatchNorm over channels, eps 1e-5, with f32 statistics.
 
-    ``activation='leaky_relu'`` appends LeakyReLU(0.2) and runs the pair as
-    the fused epilogue kernel over the folded scale/shift, rounded to the
-    input's dtype first exactly as the JAX path rounds them
-    (``_FrozenBNLeakyRelu``).  Every BatchNorm of the model is affine, so
-    the JAX block's ``affine=False`` is not ported.
+    In training mode (the module's ``training`` flag) it normalises with
+    the batch statistics, computed as flax computes them: in f32, the
+    variance as E[x^2] - E[x]^2 clipped at 0.  It then folds the batch
+    mean and the *biased* batch variance into the running statistics,
+    ``0.9 * running + 0.1 * batch`` (torch's BatchNorm2d would fold the
+    unbiased variance), unless ``update_statistics`` is off (see
+    ``frozen_statistics``).  The normalisation runs in f32 and is cast to
+    the input's dtype, as flax's ``_normalize`` promotes x against the f32
+    statistics.
+
+    In evaluation mode it uses the running statistics, and
+    ``activation='leaky_relu'`` runs the pair as the fused epilogue kernel
+    over the folded scale/shift, rounded to the input's dtype first exactly
+    as the JAX path rounds them (``_FrozenBNLeakyRelu``).  Every BatchNorm
+    of the model is affine, so the JAX block's ``affine=False`` is not
+    ported.
     """
 
     def __init__(self, features: int, activation: Optional[str] = None):
         super().__init__()
         self.activation = activation
+        self.update_statistics = True
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return self._train_forward(x)
         if self.activation == "leaky_relu":
             a, b = fold_batch_norm(self.weight, self.bias, self.running_mean,
                                    self.running_var, EPS)
@@ -80,6 +150,40 @@ class BatchNorm(nn.Module):
                                                 b.to(x.dtype).float())
         return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                             self.bias, False, 0.0, EPS)
+
+    def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        axes = (0, 2, 3)
+        mean = xf.mean(dim=axes)
+        var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+        if self.update_statistics:
+            with torch.no_grad():
+                self.running_mean.copy_(MOMENTUM * self.running_mean
+                                        + (1 - MOMENTUM) * mean)
+                self.running_var.copy_(MOMENTUM * self.running_var
+                                       + (1 - MOMENTUM) * var)
+        mul = torch.rsqrt(var + EPS) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        y = y.to(x.dtype)
+        return leaky_relu(y) if self.activation == "leaky_relu" else y
+
+
+@contextlib.contextmanager
+def frozen_statistics(module: nn.Module) -> Iterator[None]:
+    """Within the block, every training-mode ``BatchNorm`` under ``module``
+    normalises with its batch statistics but leaves its running statistics
+    as they are.  Activation checkpointing reruns a step's forward in the
+    backward pass under this context, so the statistics are folded once
+    per step, as in the JAX scan."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    previous = [m.update_statistics for m in norms]
+    for m in norms:
+        m.update_statistics = False
+    try:
+        yield
+    finally:
+        for m, flag in zip(norms, previous):
+            m.update_statistics = flag
 
 
 class ResidualBlock(nn.Module):
@@ -94,13 +198,13 @@ class ResidualBlock(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.downsample_factor = downsample_factor
-        self.conv1 = conv2d(in_planes, out_planes, 3, False, dtype)
+        self.conv1 = Conv2d(in_planes, out_planes, 3, False, dtype)
         self.bn1 = BatchNorm(out_planes, activation="leaky_relu")
-        self.conv2 = conv2d(out_planes, out_planes, 3, False, dtype)
+        self.conv2 = Conv2d(out_planes, out_planes, 3, False, dtype)
         self.bn2 = BatchNorm(out_planes)
         self.has_shortcut = downsample_factor != 1 or in_planes != out_planes
         if self.has_shortcut:
-            self.shortcut_conv = conv2d(in_planes, out_planes, 1, False, dtype)
+            self.shortcut_conv = Conv2d(in_planes, out_planes, 1, False, dtype)
             self.shortcut_bn = BatchNorm(out_planes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -120,7 +224,7 @@ class SameBlock(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.downsample_factor = downsample_factor
-        self.conv1 = conv2d(in_planes, out_planes, 3, False, dtype)
+        self.conv1 = Conv2d(in_planes, out_planes, 3, False, dtype)
         self.bn1 = BatchNorm(out_planes, activation="leaky_relu")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -137,7 +241,7 @@ class UpBlock(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.late_upscaling = late_upscaling
-        self.conv = conv2d(in_planes, out_planes, 3, False, dtype)
+        self.conv = Conv2d(in_planes, out_planes, 3, False, dtype)
         self.norm = BatchNorm(out_planes, activation="leaky_relu")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -155,7 +259,7 @@ class FinalBlock(nn.Module):
     def __init__(self, in_planes: int, out_planes: int, kernel_size: int = 3,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = conv2d(in_planes, out_planes, kernel_size, True, dtype)
+        self.conv = Conv2d(in_planes, out_planes, kernel_size, True, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.tanh(self.conv(x))
@@ -182,7 +286,7 @@ class ConvLSTMCell(nn.Module):
 
     def __init__(self, in_planes: int, out_planes: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.gates = conv2d(in_planes + out_planes, 4 * out_planes, 3, True, dtype)
+        self.gates = Conv2d(in_planes + out_planes, 4 * out_planes, 3, True, dtype)
 
     def forward(self, carry: LSTMState, x: torch.Tensor) -> Tuple[LSTMState, torch.Tensor]:
         h, c = carry
@@ -203,8 +307,8 @@ class ConvLSTM(nn.Module):
 
     def init_carry(self, batch_size: int) -> LSTMState:
         """The initial states in the model dtype, repeated over the batch
-        into contiguous tensors."""
-        return tuple(s.detach().to(self.dtype)[None].repeat(batch_size, 1, 1, 1)
+        into contiguous tensors; differentiable, as the states are learned."""
+        return tuple(s.to(self.dtype)[None].repeat(batch_size, 1, 1, 1)
                      for s in (self.initial_hidden_state, self.initial_cell_state))
 
     def forward(self, carry: LSTMState, x: torch.Tensor) -> Tuple[LSTMState, torch.Tensor]:

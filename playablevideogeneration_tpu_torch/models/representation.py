@@ -17,7 +17,7 @@ from playablevideogeneration_tpu_torch.models.layers import (
     BatchNorm,
     ResidualBlock,
     avg_pool,
-    conv2d,
+    Conv2d,
 )
 
 
@@ -25,7 +25,7 @@ class RepresentationNetwork(nn.Module):
     def __init__(self, in_channels: int, state_features: int = 64,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = conv2d(in_channels, 16, 3, False, dtype)
+        self.conv1 = Conv2d(in_channels, 16, 3, False, dtype)
         self.bn1 = BatchNorm(16, activation="leaky_relu")
         sf = state_features
         specs = [(16, 1), (32, 2), (32, 1), (sf, 2), (sf, 1), (sf + 1, 1)]

@@ -1,15 +1,19 @@
-"""Fused ConvLSTM gate update (forward): a CUDA kernel and its plain version.
+"""Fused ConvLSTM gate update, forward and backward: CUDA kernels, their
+plain versions and the autograd function around them.
 
 Counterpart of ``playablevideogeneration_tpu/ops/pallas/convlstm_gates.py``.
-The kernel (``csrc/convlstm_gates.cu``) replaces the Pallas TPU kernel
-``_fwd_kernel`` (its ``pl.pallas_call`` in ``_fwd_2d``).  It reads the fused
-4C-channel gate convolution's output and the cell state once and writes only
-(h', c').  Its bound on an H100 is memory traffic: 14 bytes per state element
-in bf16, about 1.8 MB (0.55 us at 3.35 TB/s) for the flagship's 32x32x128
-state, which is below the cost of a launch.
+The kernels (``csrc/convlstm_gates.cu``) replace the Pallas TPU kernels
+``_fwd_kernel`` (its ``pl.pallas_call`` in ``_fwd_2d``) and ``_bwd_kernel``
+(its ``pl.pallas_call`` in ``_bwd_2d``); ``_FusedGates`` is the counterpart
+of the ``custom_vjp`` ``_fused_gates_pallas``, which saves (gates, c) and
+recomputes the activations in the backward.
 
-The backward kernel of the JAX package (``_bwd_kernel``) belongs to the
-training route and is not ported yet.
+Both kernels are bound by memory traffic on an H100: the forward reads the
+fused 4C-channel gate convolution's output and the cell state once and
+writes only (h', c'), 14 bytes per state element in bf16; the backward
+reads (gates, c, dh, dc) and writes (dgates, dc_prev), 24 bytes per state
+element in bf16, 50 MB (15 us at 3.35 TB/s) for the flagship's 32x32x128
+state at the training batch of 16.
 """
 from __future__ import annotations
 
@@ -23,13 +27,15 @@ from playablevideogeneration_tpu_torch.ops.cuda import build
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
                                      ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                                         ctypes.c_void_p]
 
 
 def _gate_math(gates: torch.Tensor, c: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: gates (B, 4C, H, W) in i, f, o, g order and
-    c (B, C, H, W) -> (h', c') in c's dtype, computed in f32 as the kernel
-    computes it."""
+    """Plain PyTorch version of the forward: gates (B, 4C, H, W) in i, f, o,
+    g order and c (B, C, H, W) -> (h', c') in c's dtype, computed in f32 as
+    the kernel computes it."""
     i, f, o, g = gates.float().chunk(4, dim=1)
     i, f, o, g = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o), torch.tanh(g)
     new_c = f * c.float() + i * g
@@ -37,7 +43,28 @@ def _gate_math(gates: torch.Tensor, c: torch.Tensor
     return new_h.to(c.dtype), new_c.to(c.dtype)
 
 
-def _check(gates: torch.Tensor, c: torch.Tensor) -> None:
+def _gate_math_bwd(gates: torch.Tensor, c: torch.Tensor, dh: torch.Tensor,
+                   dc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward: the formulas of the Pallas
+    ``_bwd_kernel`` in f32, in the kernel's order of operations, with
+    dgates in gates' dtype and dc_prev in c's dtype."""
+    i, f, o, g = gates.float().chunk(4, dim=1)
+    i, f, o, g = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o), torch.tanh(g)
+    cell = c.float()
+    tanh_c = torch.tanh(f * cell + i * g)
+    dh = dh.float()
+    # d(c') takes the direct cotangent and the h' = o * tanh(c') path.
+    d_new_c = dc.float() + dh * o * (1.0 - tanh_c * tanh_c)
+    dgates = torch.cat([d_new_c * g * i * (1.0 - i),
+                        d_new_c * cell * f * (1.0 - f),
+                        dh * tanh_c * o * (1.0 - o),
+                        d_new_c * i * (1.0 - g * g)], dim=1)
+    return dgates.to(gates.dtype), (d_new_c * f).to(c.dtype)
+
+
+def _check(gates: torch.Tensor, c: torch.Tensor, *state_like: torch.Tensor) -> None:
+    """Shapes, dtypes, device and contiguity of gates (B, 4C, H, W) and of
+    c and any further (B, C, H, W) tensors (the backward's dh, dc)."""
     if c.dim() != 4 or gates.dim() != 4:
         raise ValueError(f"expected NCHW gates and c, got {tuple(gates.shape)} "
                          f"and {tuple(c.shape)}")
@@ -45,28 +72,29 @@ def _check(gates: torch.Tensor, c: torch.Tensor) -> None:
     if tuple(gates.shape) != (b, 4 * ch, h, w):
         raise ValueError(f"gates {tuple(gates.shape)} does not match c "
                          f"{tuple(c.shape)}: expected {(b, 4 * ch, h, w)}")
-    if c.dtype not in _SUFFIX or gates.dtype != c.dtype:
-        raise TypeError(f"gates and c must both be float32 or bfloat16, got "
-                        f"{gates.dtype} and {c.dtype}")
-    if gates.device != c.device:
-        raise ValueError(f"gates on {gates.device} but c on {c.device}")
-    if not (gates.is_contiguous() and c.is_contiguous()):
-        raise ValueError("gates and c must be contiguous NCHW tensors")
+    for t in state_like:
+        if t.shape != c.shape:
+            raise ValueError(f"cotangent {tuple(t.shape)} does not match c "
+                             f"{tuple(c.shape)}")
+    tensors = (gates, c) + state_like
+    if c.dtype not in _SUFFIX or any(t.dtype != c.dtype for t in tensors):
+        raise TypeError(f"gates, c and cotangents must all be float32 or bfloat16, "
+                        f"got {[t.dtype for t in tensors]}")
+    if any(t.device != c.device for t in tensors):
+        raise ValueError(f"tensors on {[str(t.device) for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("gates, c and cotangents must be contiguous NCHW tensors")
 
 
-def fused_lstm_gates(gates: torch.Tensor, c: torch.Tensor
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(gates (B, 4C, H, W), c (B, C, H, W)) -> (h', c'), both (B, C, H, W).
+def _require_cuda(t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
 
-    Launches the CUDA kernel for CUDA tensors and runs ``_gate_math`` for
-    CPU tensors; any other device raises.  ``fused_lstm_gates.launches``
-    counts the kernel launches.
-    """
-    _check(gates, c)
+
+def _forward(gates: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if c.device.type == "cpu":
         return _gate_math(gates, c)
-    if c.device.type != "cuda":
-        raise ValueError(f"unsupported device {c.device}")
+    _require_cuda(c)
     new_h = torch.empty_like(c)
     new_c = torch.empty_like(c)
     symbol = f"convlstm_gates_fwd_{_SUFFIX[c.dtype]}"
@@ -77,6 +105,69 @@ def fused_lstm_gates(gates: torch.Tensor, c: torch.Tensor
     build.check(status, "convlstm_gates", symbol)
     fused_lstm_gates.launches += 1
     return new_h, new_c
+
+
+def fused_lstm_gates_bwd(gates: torch.Tensor, c: torch.Tensor, dh: torch.Tensor,
+                         dc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gate update's backward: (gates (B, 4C, H, W), c, dh, dc (B, C, H,
+    W)) -> (dgates (B, 4C, H, W), dc_prev (B, C, H, W)).
+
+    Launches the CUDA kernel K2 for CUDA tensors and runs ``_gate_math_bwd``
+    for CPU tensors; any other device raises.
+    ``fused_lstm_gates_bwd.launches`` counts the kernel launches.
+    """
+    _check(gates, c, dh, dc)
+    if c.device.type == "cpu":
+        return _gate_math_bwd(gates, c, dh, dc)
+    _require_cuda(c)
+    dgates = torch.empty_like(gates)
+    dc_prev = torch.empty_like(c)
+    symbol = f"convlstm_gates_bwd_{_SUFFIX[c.dtype]}"
+    fn = build.function("convlstm_gates", symbol, _BWD_ARGTYPES)
+    status = fn(gates.data_ptr(), c.data_ptr(), dh.data_ptr(), dc.data_ptr(),
+                dgates.data_ptr(), dc_prev.data_ptr(), c.numel(),
+                c.shape[1] * c.shape[2] * c.shape[3], c.device.index,
+                torch.cuda.current_stream(c.device).cuda_stream)
+    build.check(status, "convlstm_gates", symbol)
+    fused_lstm_gates_bwd.launches += 1
+    return dgates, dc_prev
+
+
+fused_lstm_gates_bwd.launches = 0
+
+
+class _FusedGates(torch.autograd.Function):
+    """The gate update with its fused backward: the forward saves only
+    (gates, c), as the JAX custom VJP saves its residuals, and the
+    backward recomputes the activations inside K2.  A cotangent that no
+    later computation produced (dc after the last step) arrives as zeros,
+    since ``ctx.set_materialize_grads`` keeps its default."""
+
+    @staticmethod
+    def forward(ctx, gates: torch.Tensor, c: torch.Tensor):
+        ctx.save_for_backward(gates, c)
+        return _forward(gates, c)
+
+    @staticmethod
+    def backward(ctx, dh: torch.Tensor, dc: torch.Tensor):
+        gates, c = ctx.saved_tensors
+        return fused_lstm_gates_bwd(gates, c, dh.contiguous(), dc.contiguous())
+
+
+def fused_lstm_gates(gates: torch.Tensor, c: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(gates (B, 4C, H, W), c (B, C, H, W)) -> (h', c'), both (B, C, H, W).
+
+    Launches the CUDA kernel K1 for CUDA tensors and runs ``_gate_math``
+    for CPU tensors; any other device raises.  When autograd records the
+    call, it goes through ``_FusedGates``, whose backward is K2 (or
+    ``_gate_math_bwd`` on the CPU).  ``fused_lstm_gates.launches`` counts
+    K1's launches.
+    """
+    _check(gates, c)
+    if torch.is_grad_enabled() and (gates.requires_grad or c.requires_grad):
+        return _FusedGates.apply(gates, c)
+    return _forward(gates, c)
 
 
 fused_lstm_gates.launches = 0

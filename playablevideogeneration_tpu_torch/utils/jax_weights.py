@@ -6,11 +6,15 @@ submodules carry the Flax names, so a leaf's path is its state key after
 these renamings:
 
 - the ``BatchNorm_0`` level that the JAX ``BatchNorm`` wrapper adds is dropped;
-- conv ``kernel (kh, kw, in, out)`` -> ``weight (out, in, kh, kw)``;
+- conv ``kernel (kh, kw, in, out)`` -> ``weight (out, in, kh, kw)``, dense
+  ``kernel (in, out)`` -> ``weight (out, in)``;
 - BN ``scale``/``bias`` -> ``weight``/``bias``, ``mean``/``var`` ->
   ``running_mean``/``running_var``;
 - ConvLSTM ``initial_*_state (H, W, C)`` -> ``(C, H, W)``;
 - ``model_state/centroids`` is copied as it is.
+
+The same function loads the JAX VGG19 tree (``{"params": {"conv0": ...}}``)
+into ``models.vgg.Vgg19``.
 """
 from __future__ import annotations
 
@@ -45,7 +49,7 @@ def _convert(collection: str, path: Tuple[str, ...], value: np.ndarray
         if leaf not in _RENAMES:
             raise KeyError(f"unknown leaf {collection}/{'/'.join(path)}")
         if leaf == "kernel":
-            value = value.transpose(3, 2, 0, 1)
+            value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
         parts[-1] = _RENAMES[leaf]
     return ".".join(parts), value
 
@@ -56,9 +60,7 @@ def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
     target's dtype and device) and returns it.
 
     Every leaf is consumed, and every parameter and buffer of ``model``
-    must be filled: a missing, extra or mis-shaped leaf raises.  The one
-    exception is the subtrees the play route does not hold: top-level
-    ``action_network_*`` and ``state_to_hidden`` are skipped by name.
+    must be filled: a missing, extra or mis-shaped leaf raises.
     """
     targets = dict(itertools.chain(model.named_parameters(), model.named_buffers()))
     unknown = set(variables) - set(_COLLECTIONS)
@@ -67,8 +69,6 @@ def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
     filled = set()
     for collection in _COLLECTIONS:
         for path, value in _leaves(variables.get(collection, {})):
-            if path[0].startswith("action_network_") or path[0] == "state_to_hidden":
-                continue
             key, value = _convert(collection, path, value)
             if key not in targets:
                 raise KeyError(f"extra leaf {collection}/{'/'.join(path)}: the "
@@ -77,7 +77,7 @@ def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
             if tuple(value.shape) != tuple(target.shape):
                 raise ValueError(f"{collection}/{'/'.join(path)} has shape "
                                  f"{value.shape}, {key} expects {tuple(target.shape)}")
-            target.copy_(torch.from_numpy(np.ascontiguousarray(value)))
+            target.copy_(torch.from_numpy(np.array(value)))
             filled.add(key)
     missing = sorted(set(targets) - filled)
     if missing:

@@ -116,3 +116,69 @@ def test_conv_lstm_two_steps():
             np.testing.assert_allclose(nhwc(got), np.asarray(want), **TOL)
             np.testing.assert_allclose(nhwc(torch_carry[1]), np.asarray(jax_carry[1]),
                                        **TOL)
+
+
+@pytest.mark.parametrize("activation", ["leaky_relu", None])
+def test_train_batch_norm_matches_flax_over_two_calls(activation):
+    """Batch statistics in f32 as E[x^2] - E[x]^2; running statistics
+    folded as flax folds them (keep 0.9, biased variance).  The input's
+    mean is far from 0 so that torch's unbiased fold would show."""
+    jax_bn = jl.BatchNorm(use_running_average=False, activation=activation)
+    xs = [_input((2, 3, 3, 5), seed=s) * 2.0 + 1.5 for s in (7, 8)]
+    variables = random_variables(jax_bn.init(jax.random.PRNGKey(0), jnp.asarray(xs[0])), 9)
+    torch_bn = load_jax_variables(tl.BatchNorm(5, activation=activation), variables).train()
+    for x in xs:
+        want, mutated = jax_bn.apply(variables, jnp.asarray(x), mutable=["batch_stats"])
+        variables = dict(variables, **mutated)
+        got = torch_bn(nchw(x))
+        np.testing.assert_allclose(nhwc(got), np.asarray(want), **TOL)
+        stats = variables["batch_stats"]["BatchNorm_0"]
+        np.testing.assert_allclose(torch_bn.running_mean.numpy(), np.asarray(stats["mean"]),
+                                   **TOL)
+        np.testing.assert_allclose(torch_bn.running_var.numpy(), np.asarray(stats["var"]),
+                                   **TOL)
+
+
+def test_train_residual_block_matches_flax():
+    """Every BatchNorm of a block in training mode, and the statistics the
+    block's three BatchNorms fold."""
+    jax_block = jl.ResidualBlock(6, 2, train=True)
+    x = _input((2, 8, 8, 4))
+    variables = random_variables(jax_block.init(jax.random.PRNGKey(0), jnp.asarray(x)), 10)
+    want, mutated = jax_block.apply(variables, jnp.asarray(x), mutable=["batch_stats"])
+    block = load_jax_variables(tl.ResidualBlock(4, 6, 2), variables).train()
+    np.testing.assert_allclose(nhwc(block(nchw(x))), np.asarray(want), **TOL)
+    fresh = load_jax_variables(tl.ResidualBlock(4, 6, 2), dict(variables, **mutated))
+    for key, value in fresh.state_dict().items():
+        torch.testing.assert_close(block.state_dict()[key], value, rtol=1e-5, atol=1e-6)
+
+
+def test_frozen_statistics_normalises_with_the_batch_and_folds_nothing():
+    block = tl.ResidualBlock(3, 4, 2).train()
+    x = torch.randn(2, 3, 8, 8)
+    before = {k: v.clone() for k, v in block.state_dict().items()}
+    with tl.frozen_statistics(block):
+        frozen = block(x)
+    for key, value in block.state_dict().items():
+        torch.testing.assert_close(value, before[key], rtol=0, atol=0)
+    torch.testing.assert_close(block(x), frozen, rtol=0, atol=0)
+    assert all(m.update_statistics for m in block.modules() if isinstance(m, tl.BatchNorm))
+    assert not torch.equal(block.bn1.running_mean, before["bn1.running_mean"])
+
+
+def test_parameters_stay_f32_and_casts_are_reused_without_gradients():
+    """bf16 compute over f32 parameters: gradients are f32; with gradients
+    off a cast is made once and remade only after the parameter changes."""
+    conv = tl.Conv2d(3, 4, 3, True, torch.bfloat16)
+    x = torch.randn(1, 3, 5, 5)
+    conv(x).float().sum().backward()
+    assert conv.weight.dtype == conv.weight.grad.dtype == torch.float32
+    with torch.no_grad():
+        first = conv(x)
+        cast = conv._casts["weight"][1]
+        conv(x)
+        assert conv._casts["weight"][1] is cast
+        conv.weight.add_(1.0)
+        second = conv(x)
+        assert conv._casts["weight"][1] is not cast
+    assert first.dtype == torch.bfloat16 and not torch.equal(first, second)

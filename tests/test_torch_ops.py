@@ -1,10 +1,12 @@
 """Parity of the port's kernel modules (ops/cuda) with the Pallas kernels.
 
 On the CPU each wrapper runs its plain PyTorch version, which is held here
-against the JAX package's Pallas kernel in interpret mode.  On a GPU,
+against the JAX package's Pallas kernel in interpret mode (the gate
+backward through ``jax.vjp`` of its custom VJP).  On a GPU,
 ``chip_smoke.py`` holds each CUDA kernel against its plain version at every
-shape of the flagship play step.
+shape of the flagship's play and training steps.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,7 +16,10 @@ from torch_parity import nchw, nhwc
 from playablevideogeneration_tpu.ops.pallas import convlstm_gates as jax_gates
 from playablevideogeneration_tpu.ops.pallas import fused_norm_act as jax_norm_act
 from playablevideogeneration_tpu_torch.ops.cuda import build
-from playablevideogeneration_tpu_torch.ops.cuda.convlstm_gates import fused_lstm_gates
+from playablevideogeneration_tpu_torch.ops.cuda.convlstm_gates import (
+    fused_lstm_gates,
+    fused_lstm_gates_bwd,
+)
 from playablevideogeneration_tpu_torch.ops.cuda.fused_norm_act import (
     fold_batch_norm,
     fused_scale_shift_leaky_relu,
@@ -46,6 +51,92 @@ def test_gate_update_matches_pallas_kernel(shape):
         assert got.dtype == torch.float32 and got.is_contiguous()
         np.testing.assert_allclose(nhwc(got), np.asarray(want), rtol=1e-6, atol=1e-6)
         np.testing.assert_allclose(nhwc(got), np.asarray(ref), rtol=1e-6, atol=1e-6)
+
+
+def _cotangents(seed, b, h, w, c):
+    rng = np.random.default_rng(seed + 100)
+    return tuple(rng.normal(size=(b, h, w, c)).astype(np.float32) for _ in range(2))
+
+
+def _jax_gate_vjps(gates, cell, dh, dc):
+    """(dgates, dc_prev) from the Pallas custom VJP in interpret mode and
+    from autodiff of the plain ``_gate_math``."""
+    cotangents = (jnp.asarray(dh), jnp.asarray(dc))
+    outs = []
+    for fn in (lambda g, c: jax_gates.fused_lstm_gates(g, c, use_pallas=False, interpret=True),
+               jax_gates._gate_math):
+        _, vjp = jax.vjp(fn, jnp.asarray(gates), jnp.asarray(cell))
+        outs.append(tuple(np.asarray(x) for x in vjp(cotangents)))
+    return outs
+
+
+@pytest.mark.parametrize("shape", GATE_SHAPES)
+def test_gate_backward_matches_pallas_kernel(shape):
+    """K2's plain version, and the autograd function around K1 and K2, hold
+    against the Pallas backward kernel and against ``jax.vjp`` of the
+    plain gate math."""
+    gates, cell = _gate_inputs(sum(shape), *shape)
+    dh, dc = _cotangents(sum(shape), *shape)
+    wants = _jax_gate_vjps(gates, cell, dh, dc)
+
+    before = fused_lstm_gates_bwd.launches
+    direct = fused_lstm_gates_bwd(nchw(gates), nchw(cell), nchw(dh), nchw(dc))
+    g, c = nchw(gates).requires_grad_(), nchw(cell).requires_grad_()
+    new_h, new_c = fused_lstm_gates(g, c)
+    through_autograd = torch.autograd.grad((new_h, new_c), (g, c), (nchw(dh), nchw(dc)))
+    assert fused_lstm_gates_bwd.launches == before  # CPU tensors launch nothing
+    # XLA's and PyTorch's f32 sigmoid and tanh differ by a few ulp, which
+    # the backward's products of up to five factors carry: atol 1e-5 on
+    # values of order 1.
+    for got in (direct, through_autograd):
+        for want in wants:
+            for tensor, expected in zip(got, want):
+                assert tensor.dtype == torch.float32 and tensor.is_contiguous()
+                np.testing.assert_allclose(nhwc(tensor), expected, rtol=1e-5, atol=1e-5)
+
+
+def test_gate_backward_takes_an_unused_cell_cotangent():
+    """After the last step only h' is used: autograd hands the function a
+    zero dc, and the result equals the VJP with dc = 0."""
+    shape = (2, 3, 5, 8)
+    gates, cell = _gate_inputs(7, *shape)
+    dh, _ = _cotangents(7, *shape)
+    want = _jax_gate_vjps(gates, cell, dh, np.zeros_like(dh))[0]
+    g, c = nchw(gates).requires_grad_(), nchw(cell).requires_grad_()
+    new_h, _ = fused_lstm_gates(g, c)
+    got = torch.autograd.grad(new_h, (g, c), nchw(dh))
+    for tensor, expected in zip(got, want):
+        np.testing.assert_allclose(nhwc(tensor), expected, rtol=1e-5, atol=1e-5)
+
+
+def test_gate_backward_keeps_the_storage_dtype():
+    """bf16 storage: dgates comes back in gates' dtype and dc_prev in c's,
+    from f32 math rounded once, as the Pallas kernel writes them."""
+    shape = (1, 4, 4, 8)
+    gates, cell = _gate_inputs(3, *shape)
+    dh, dc = _cotangents(3, *shape)
+    args = [nchw(x).to(torch.bfloat16) for x in (gates, cell, dh, dc)]
+    dgates, dc_prev = fused_lstm_gates_bwd(*args)
+    assert dgates.dtype == dc_prev.dtype == torch.bfloat16
+    want = _jax_gate_vjps(*[nhwc(x) for x in args])[0]
+    for tensor, expected in zip((dgates, dc_prev), want):
+        np.testing.assert_allclose(nhwc(tensor), expected, rtol=2 ** -7, atol=1e-6)
+
+
+def test_gate_function_under_activation_checkpointing():
+    """The autograd function rerun by ``torch.utils.checkpoint`` gives the
+    gradients of the plain run."""
+    from torch.utils.checkpoint import checkpoint
+
+    gates, cell = _gate_inputs(9, 2, 4, 4, 8)
+    grads = []
+    for use_checkpoint in (False, True):
+        g, c = nchw(gates).requires_grad_(), nchw(cell).requires_grad_()
+        fn = lambda a, b: fused_lstm_gates(a * 1.5, b)[0].square().sum()  # noqa: E731
+        loss = checkpoint(fn, g, c, use_reentrant=False) if use_checkpoint else fn(g, c)
+        grads.append(torch.autograd.grad(loss, (g, c)))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def _norm_inputs(seed, shape):
@@ -107,6 +198,25 @@ def test_gate_wrapper_rejects_bad_inputs(case):
     gates, c = _bad_gate_inputs()[case]
     with pytest.raises((ValueError, TypeError)):
         fused_lstm_gates(gates, c)
+
+
+def _bad_gate_backward_inputs():
+    g = torch.zeros(1, 8, 3, 3)
+    c = torch.zeros(1, 2, 3, 3)
+    return {
+        "cotangent_shape": (g, c, torch.zeros(1, 2, 3, 4), c),
+        "cotangent_dtype": (g, c, c.bfloat16(), c),
+        "cotangent_strides": (g, c, c.transpose(2, 3), c),
+        "device": tuple(t.to("meta") for t in (g, c, c, c)),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_bad_gate_backward_inputs()))
+def test_gate_backward_wrapper_rejects_bad_inputs(case):
+    """Only CPU tensors take the plain version; any other device launches
+    the kernel (CUDA) or raises."""
+    with pytest.raises((ValueError, TypeError)):
+        fused_lstm_gates_bwd(*_bad_gate_backward_inputs()[case])
 
 
 def _bad_norm_inputs():
