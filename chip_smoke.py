@@ -11,23 +11,34 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    power limit;
 2. build: compiles every kernel under
    ``playablevideogeneration_tpu_torch/ops/cuda/csrc`` with nvcc for sm_90a;
+   Reports each kernel's registers and spills (``-Xptxas=-v``) and, where
+   the toolkit has ``cuobjdump``, its static SASS instruction count;
 3. kernels: holds each kernel against its plain PyTorch version on the card
    at every shape the flagship's play and training steps give it, plus a
-   ragged gate case, in f32 (tolerance 1e-5) and bf16 (tolerance one bf16
-   ulp: rtol 2^-7, atol 1e-5); and the gate update's autograd function
-   (K1 forward, K2 backward) against autograd through the plain gate math;
+   ragged case (3x65x25x40), a C*H*W that is no multiple of a vector
+   (3x5x7x9) and inputs whose storage starts one element into its buffer,
+   in f32 and bf16: each must equal its plain version bit for bit, and each
+   case must take the path it should (packs of 4 elements for K1 and of 16
+   bytes for K3, or one element per thread where the sizes or the
+   alignment forbid them); and the gate
+   update's autograd function (K1 forward, K2 backward) against autograd
+   through the plain gate math (1e-5);
 4. play route: the bf16 flagship (configs/01_bair.yaml, seeded random
    weights and BatchNorm statistics) through ``PlaySession``: start, three
    ``generate_next``, ``generate_next_u8``, ``generate_next_interpolation``
    and a 64-action ``rollout``; every step must launch the gate kernel 3
    times and the norm kernel 15 times, frames must be finite and in
-   [-1, 1], and the rollout must synchronise with the host once;
+   [-1, 1], and the rollout must synchronise with the host once; one of
+   the model's frozen BatchNorm + LeakyReLU calls, profiled, must run
+   exactly one kernel, K3 (the BatchNorm's fold runs inside it);
 5. parity: the same weights in f32 with TF32 off through the kernels on the
    card, and through the plain versions on the CPU; three steps must agree
    to 1e-3;
-6. timings: each kernel's device time per launch at its flagship shapes
-   beside its memory bound and its plain version's time, the play step's
-   latency, the rollout's frame rate, and the step's device-time breakdown;
+6. timings: each kernel's device time per launch at its flagship shapes,
+   warm (the same inputs back to back, in L2) and cold (rotating over
+   more than 100 MB of distinct inputs), beside its memory bound and its
+   plain version's time; the play step's latency, the rollout's frame
+   rate, and the step's kernel count and device-time breakdown;
 7. train route: the bf16 flagship trainer (batch 16, 12 frames, smooth MI,
    per-step activation checkpointing, seeded weights and batch) takes one
    pretraining and three full-phase steps; each must give a finite loss and
@@ -40,34 +51,42 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    the same noise (drawn from one CPU generator): the loss and every term
    within rtol 1e-3, the per-subnetwork gradient norms within rtol 1e-2;
 9. train timings: K1's and K2's device time per launch at the training
-   shapes beside their bounds and plain versions' times, the median bf16
-   train step, ``train_frames_per_sec`` (B*T per step), peak device memory,
-   and the device's busy and idle share and kernel-time breakdown over two
-   profiled steps (the port's kernels listed one by one).
+   shapes, warm and cold, beside their bounds and plain versions' times,
+   the median bf16 train step, ``train_frames_per_sec`` (B*T per step),
+   peak device memory, and the device's busy and idle share and
+   kernel-time breakdown over two profiled steps (the port's kernels listed
+   one by one).
 
 It prints JSON lines as it goes, then the kernels' summary line (``ms``,
-``plain_ms`` and ``bound_ms`` there are per step of the kernel's route: the
-sum over a bf16 play step's launches for K1 and K3, over a bf16 training
-step's 33 K2 launches for K2; ``launches`` counts phase 4's run for K3,
-phase 7's for K2 and both for K1), the card's nvidia-smi line, and last
-``{"ok": true, "device": {...}}``.
+``cold_ms``, ``plain_ms`` and ``bound_ms`` there are per step of the
+kernel's route: the sum over a bf16 play step's launches for K1 and K3,
+over a bf16 training step's 33 K2 launches for K2; ``launches`` counts
+phase 4's run for K3, phase 7's for K2 and both for K1), the card's
+nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import itertools
 import json
+import math
+import os
+import re
 import statistics
 import subprocess
 import sys
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from playablevideogeneration_tpu_torch.inference.play_session import PlaySession
 from playablevideogeneration_tpu_torch.models.caddy import flagship_model
+from playablevideogeneration_tpu_torch.models.layers import BatchNorm
 from playablevideogeneration_tpu_torch.ops.cuda import build
 from playablevideogeneration_tpu_torch.ops.cuda.convlstm_gates import (
+    _PACK as GATE_PACK,
     _gate_math,
     _gate_math_bwd,
     fused_lstm_gates,
@@ -80,9 +99,8 @@ from playablevideogeneration_tpu_torch.training.bench_harness import (
 )
 from playablevideogeneration_tpu_torch.training.trainer import Trainer
 from playablevideogeneration_tpu_torch.ops.cuda.fused_norm_act import (
-    _scale_shift_leaky_relu,
-    fold_batch_norm,
-    fused_scale_shift_leaky_relu,
+    _batch_norm_leaky_relu,
+    fused_batch_norm_leaky_relu,
 )
 
 SEED = 0
@@ -120,23 +138,28 @@ TRAIN_TIMED_STEPS = 5
 GATE_TRAIN_SHAPES = [(TRAIN_BATCH, 128, 32, 32), (TRAIN_BATCH, 256, 16, 16),
                      (TRAIN_BATCH, 128, 32, 32)]  # lstm0, lstm1, lstm2
 GATE_RAGGED_SHAPE = (3, 65, 25, 40)
-# Shapes (C, H, W) at batch 1 of every launch in one flagship play step.
-GATE_SHAPES = [(128, 32, 32), (256, 16, 16), (128, 32, 32)]  # lstm0, lstm1, lstm2
+# A C*H*W that is no multiple of a pack: one element per thread.
+UNVECTORED_SHAPE = (3, 5, 7, 9)
+# Shapes (B, C, H, W) at batch 1 of every launch in one flagship play step.
+GATE_SHAPES = [(1, 128, 32, 32), (1, 256, 16, 16), (1, 128, 32, 32)]  # lstm0, lstm1, lstm2
 NORM_SHAPES = [
-    (16, 128, 128), (16, 128, 128),   # E: bn1, res0.bn1
-    (32, 64, 64), (32, 64, 64),       # E: res1.bn1, res2.bn1
-    (64, 32, 32), (64, 32, 32),       # E: res3.bn1, res4.bn1
-    (65, 32, 32),                     # E: res5.bn1 (state + attention)
-    (256, 16, 16), (128, 16, 16),     # R: same0.bn1, up0.norm
-    (128, 32, 32),                    # R: same1.bn1
-    (128, 64, 64), (128, 64, 64),     # D: up0.norm, res0.bn1
-    (64, 128, 128), (64, 128, 128),   # D: up1.norm, res1.bn1
-    (32, 256, 256),                   # D: up2.norm
+    (1, 16, 128, 128), (1, 16, 128, 128),  # E: bn1, res0.bn1
+    (1, 32, 64, 64), (1, 32, 64, 64),      # E: res1.bn1, res2.bn1
+    (1, 64, 32, 32), (1, 64, 32, 32),      # E: res3.bn1, res4.bn1
+    (1, 65, 32, 32),                       # E: res5.bn1 (state + attention)
+    (1, 256, 16, 16), (1, 128, 16, 16),    # R: same0.bn1, up0.norm
+    (1, 128, 32, 32),                      # R: same1.bn1
+    (1, 128, 64, 64), (1, 128, 64, 64),    # D: up0.norm, res0.bn1
+    (1, 64, 128, 128), (1, 64, 128, 128),  # D: up1.norm, res1.bn1
+    (1, 32, 256, 256),                     # D: up2.norm
 ]
+# Cold timings rotate over distinct inputs totalling at least this much,
+# three times the 50 MB L2, so that each launch finds its inputs in HBM.
+COLD_BYTES = 150e6
 # Kernel-name fragments that sort the profiled step's device time.
 KERNEL_GROUPS = [
     ("port_kernels", ("gates_fwd_kernel", "gates_bwd_kernel",
-                      "scale_shift_leaky_relu_kernel")),
+                      "batch_norm_leaky_relu_kernel")),
     ("layout_transpose", ("nchwToNhwc", "nhwcToNchw", "tensorTransform")),
     ("convolution", ("fprop", "dgrad", "wgrad", "xmma", "winograd", "cutlass", "gemm",
                      "conv")),
@@ -206,55 +229,95 @@ def bound_ms(bytes_moved: float, operations: float):
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
 
-def gate_inputs(shape, dtype, gen):
-    c, h, w = shape
-    gates = (torch.randn((1, 4 * c, h, w), generator=gen, device="cuda") * 2).to(dtype)
-    cell = torch.randn((1, c, h, w), generator=gen, device="cuda").to(dtype)
-    return gates, cell
+def on_card(shape, dtype, gen, scale: float = 1.0, offset: int = 0) -> torch.Tensor:
+    """Seeded N(0, scale^2) values in ``dtype``: a contiguous tensor, or
+    with ``offset`` a contiguous view whose storage starts that many
+    elements into its buffer."""
+    values = (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+    if not offset:
+        return values
+    view = torch.empty(values.numel() + offset, dtype=dtype, device="cuda")[offset:]
+    return view.view(shape).copy_(values)
 
 
-def norm_inputs(shape, dtype, gen):
-    c, h, w = shape
-    x = torch.randn((1, c, h, w), generator=gen, device="cuda").to(dtype)
+def gate_inputs(shape, dtype, gen, offset: int = 0):
+    b, c, h, w = shape
+    return on_card((b, 4 * c, h, w), dtype, gen, 2.0, offset), on_card(shape, dtype, gen, 1.0,
+                                                                       offset)
+
+
+def gate_backward_inputs(shape, dtype, gen):
+    return gate_inputs(shape, dtype, gen) + tuple(on_card(shape, dtype, gen)
+                                                  for _ in range(2))  # dh, dc
+
+
+def norm_inputs(shape, dtype, gen, offset: int = 0):
+    """x and the BatchNorm's raw statistics: scale, bias, mean, var."""
+    c = shape[1]
+    x = on_card(shape, dtype, gen, 1.0, offset)
     scale = torch.rand(c, generator=gen, device="cuda") + 0.5
     bias = torch.randn(c, generator=gen, device="cuda") * 0.1
     mean = torch.randn(c, generator=gen, device="cuda") * 0.1
     var = torch.rand(c, generator=gen, device="cuda") * 1.5 + 0.5
-    a, b = fold_batch_norm(scale, bias, mean, var)
-    return x, a.to(dtype).float(), b.to(dtype).float()
+    return x, scale, bias, mean, var
+
+
+def unique(shapes):
+    return list(dict.fromkeys(shapes))
+
+
+def compare(name, shape, dtype, got, want) -> float:
+    """Holds a kernel's outputs against its plain version's: the stated
+    tolerance for the message, then bit for bit; returns the largest
+    difference."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0.0
+    for g, w in zip(got, want):
+        require(g.dtype == dtype and g.shape == w.shape, (name, shape))
+        torch.testing.assert_close(g.float(), w.float(), **TOLERANCE[dtype],
+                                   msg=lambda m: f"{name} {shape} {dtype}: {m}")
+        require(torch.equal(g, w), f"{name} {shape} {dtype} is not bit-exact")
+        err = max(err, (g.float() - w.float()).abs().max().item())
+    return err
 
 
 def check_kernels(gen) -> dict:
-    """Phase 3; returns the largest error of each kernel."""
+    """Phase 3, K1 and K3; returns the largest error of each kernel.  The
+    unvectored shape and the views that start one element into their
+    buffers must run one element per thread, and each kernel must run
+    packs at some flagship shape in each dtype."""
     errors = {"convlstm_gates": 0.0, "fused_norm_act": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
-        cases = [("convlstm_gates", s, gate_inputs(s, dtype, gen), fused_lstm_gates,
-                  _gate_math) for s in GATE_SHAPES + [(65, 25, 40)]]
-        cases += [("fused_norm_act", s, norm_inputs(s, dtype, gen),
-                   fused_scale_shift_leaky_relu, _scale_shift_leaky_relu)
-                  for s in NORM_SHAPES]
-        for name, shape, args, kernel, plain in cases:
+        cases = [("convlstm_gates", s, o, gate_inputs(s, dtype, gen, o), fused_lstm_gates,
+                  _gate_math)
+                 for s, o in [(s, 0) for s in unique(GATE_SHAPES + GATE_TRAIN_SHAPES)]
+                 + [(GATE_RAGGED_SHAPE, 0), (UNVECTORED_SHAPE, 0), (GATE_SHAPES[0], 1)]]
+        cases += [("fused_norm_act", s, o, norm_inputs(s, dtype, gen, o),
+                   fused_batch_norm_leaky_relu, _batch_norm_leaky_relu)
+                  for s, o in [(s, 0) for s in unique(NORM_SHAPES)]
+                  + [(UNVECTORED_SHAPE, 0), (NORM_SHAPES[2], 1)]]
+        widths = {name: set() for name in errors}
+        for name, shape, offset, args, kernel, plain in cases:
             got, want = kernel(*args), plain(*args)
             torch.cuda.synchronize()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            err = 0.0
-            for g, w in zip(got, want):
-                require(g.dtype == dtype and g.shape == w.shape, (name, shape))
-                torch.testing.assert_close(g.float(), w.float(), **TOLERANCE[dtype],
-                                           msg=lambda m: f"{name} {shape} {dtype}: {m}")
-                err = max(err, (g.float() - w.float()).abs().max().item())
+            err = compare(name, shape, dtype, got, want)
             errors[name] = max(errors[name], err)
-            emit(phase="kernel_check", kernel=name, shape=shape,
-                 dtype=DTYPE_NAMES[dtype], max_abs_err=err)
+            # The width the wrapper chose: K1 walks C*H*W of c and gates in
+            # packs of GATE_PACK, K3 H*W of x in 16-byte packs.
+            if name == "convlstm_gates":
+                width = build.vector_width(math.prod(shape[1:]), args[1], args[0],
+                                           elements=GATE_PACK)
+            else:
+                width = build.vector_width(math.prod(shape[2:]), args[0],
+                                           elements=16 // args[0].element_size())
+            require(width == 1 or not (offset or shape == UNVECTORED_SHAPE),
+                    f"{name} {shape} offset {offset}: vector width {width}")
+            widths[name].add(width)
+            emit(phase="kernel_check", kernel=name, shape=shape, storage_offset=offset,
+                 dtype=DTYPE_NAMES[dtype], vector_width=width, max_abs_err=err)
+        require(all(w - {1} for w in widths.values()), f"{dtype}: vector widths {widths}")
     return errors
-
-
-def gate_backward_inputs(shape, dtype, gen):
-    b, c, h, w = shape
-    gates = (torch.randn((b, 4 * c, h, w), generator=gen, device="cuda") * 2).to(dtype)
-    return (gates,) + tuple(torch.randn(shape, generator=gen, device="cuda").to(dtype)
-                            for _ in range(3))  # c, dh, dc
 
 
 def check_gate_backward(gen) -> float:
@@ -265,12 +328,7 @@ def check_gate_backward(gen) -> float:
             args = gate_backward_inputs(shape, dtype, gen)
             got, want = fused_lstm_gates_bwd(*args), _gate_math_bwd(*args)
             torch.cuda.synchronize()
-            err = 0.0
-            for g, w in zip(got, want):
-                require(g.dtype == dtype and g.shape == w.shape, ("gate_bwd", shape))
-                torch.testing.assert_close(g.float(), w.float(), **TOLERANCE[dtype],
-                                           msg=lambda m: f"gate_bwd {shape} {dtype}: {m}")
-                err = max(err, (g.float() - w.float()).abs().max().item())
+            err = compare("gate_bwd", shape, dtype, got, want)
             worst = max(worst, err)
             emit(phase="kernel_check", kernel="convlstm_gates_bwd", shape=shape,
                  dtype=DTYPE_NAMES[dtype], max_abs_err=err)
@@ -338,14 +396,14 @@ def route_parity(obs: np.ndarray, actions: np.ndarray) -> float:
     torch.backends.cuda.matmul.allow_tf32 = False
     gpu = PlaySession(flagship_model("cuda", torch.float32, SEED)).start(obs)
     cpu = PlaySession(flagship_model("cpu", torch.float32, SEED)).start(obs)
-    before = fused_lstm_gates.launches, fused_scale_shift_leaky_relu.launches
+    before = fused_lstm_gates.launches, fused_batch_norm_leaky_relu.launches
     err = 0.0
     for a in actions[:3]:
         got, want = gpu.generate_next(int(a)), cpu.generate_next(int(a))
         check_frame(got, (256, 256, 3))
         err = max(err, float(np.abs(got - want).max()))
     counts = (fused_lstm_gates.launches - before[0],
-              fused_scale_shift_leaky_relu.launches - before[1])
+              fused_batch_norm_leaky_relu.launches - before[1])
     require(counts == (9, 45), f"f32 route launched {counts}, not (9, 45)")
     for (gh, gc), (ch, cc) in zip(gpu.carry, cpu.carry):
         err = max(err, (gh.cpu() - ch).abs().max().item(), (gc.cpu() - cc).abs().max().item())
@@ -355,33 +413,54 @@ def route_parity(obs: np.ndarray, actions: np.ndarray) -> float:
     return err
 
 
+def kernel_time(name, shape, kernel, plain, make_args, bytes_moved, operations) -> dict:
+    """Device time of one bf16 launch at ``shape``, warm (the same inputs
+    back to back, in L2) and cold (rotating over distinct input sets that
+    total ``COLD_BYTES``, so that each launch reads its inputs from HBM),
+    beside the bound and the plain version's warm time; emits them."""
+    args = make_args()
+    bound, bound_by = bound_ms(bytes_moved, operations)
+    ms = device_ms(lambda: kernel(*args))
+    sets = [args] + [make_args() for _ in range(math.ceil(COLD_BYTES / bytes_moved))]
+    turn = itertools.cycle(sets)
+    cold_ms = device_ms(lambda: kernel(*next(turn)))
+    del sets, turn
+    plain_ms = device_ms(lambda: plain(*args), launches=20)
+    emit(phase="kernel_time", kernel=name, shape=shape, dtype="bf16", us=ms * 1e3,
+         cold_us=cold_ms * 1e3, bound_us=bound * 1e3, bound_by=bound_by,
+         plain_us=plain_ms * 1e3, bound_share_cold=bound / cold_ms)
+    return dict(ms=ms, cold_ms=cold_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+
+
+def add_to(sums: dict, name: str, times: dict, count: int = 1) -> None:
+    total = sums.setdefault(name, dict(ms=0.0, cold_ms=0.0, plain_ms=0.0, bound_ms=0.0))
+    for key in ("ms", "cold_ms", "plain_ms", "bound_ms"):
+        total[key] += times[key] * count
+    total["bound_by"] = times["bound_by"]
+
+
 def time_kernels(gen) -> dict:
-    """Phase 6a: device time, bound and plain time of every launch of one
+    """Phase 6a: device times, bound and plain time of every launch of one
     bf16 play step; returns per-kernel sums over the step."""
     dtype = torch.bfloat16
     size = 2  # bytes per bf16 element
     sums = {}
     # Per state element K1 reads 4 gates and c and writes h' and c'; per
-    # element K3 reads x and writes y (and reads 8 bytes per channel of a, b).
-    cases = [("convlstm_gates", s, gate_inputs(s, dtype, gen), fused_lstm_gates, _gate_math,
-              7 * size, GATE_OPS_PER_ELEMENT) for s in GATE_SHAPES]
-    cases += [("fused_norm_act", s, norm_inputs(s, dtype, gen),
-               fused_scale_shift_leaky_relu, _scale_shift_leaky_relu, 2 * size,
-               NORM_OPS_PER_ELEMENT) for s in NORM_SHAPES]
-    for name, shape, args, kernel, plain, bytes_per_element, ops in cases:
-        elements = shape[0] * shape[1] * shape[2]
-        extra_bytes = 8 * shape[0] if name == "fused_norm_act" else 0
-        bound, bound_by = bound_ms(elements * bytes_per_element + extra_bytes,
-                                   elements * ops)
-        ms = device_ms(lambda: kernel(*args))
-        plain_ms = device_ms(lambda: plain(*args))
-        emit(phase="kernel_time", kernel=name, shape=shape, dtype="bf16", us=ms * 1e3,
-             bound_us=bound * 1e3, bound_by=bound_by, plain_us=plain_ms * 1e3)
-        total = sums.setdefault(name, dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                                           bound_by=bound_by))
-        total["ms"] += ms
-        total["plain_ms"] += plain_ms
-        total["bound_ms"] += bound
+    # element K3 reads x and writes y, and it reads 16 bytes per channel
+    # of statistics (scale, bias, mean, var).
+    for shape in unique(GATE_SHAPES):
+        elements = math.prod(shape)
+        times = kernel_time("convlstm_gates", shape, fused_lstm_gates, _gate_math,
+                            lambda: gate_inputs(shape, dtype, gen), elements * 7 * size,
+                            elements * GATE_OPS_PER_ELEMENT)
+        add_to(sums, "convlstm_gates", times, GATE_SHAPES.count(shape))
+    for shape in unique(NORM_SHAPES):
+        elements = math.prod(shape)
+        times = kernel_time("fused_norm_act", shape, fused_batch_norm_leaky_relu,
+                            _batch_norm_leaky_relu, lambda: norm_inputs(shape, dtype, gen),
+                            elements * 2 * size + 16 * shape[1],
+                            elements * NORM_OPS_PER_ELEMENT)
+        add_to(sums, "fused_norm_act", times, NORM_SHAPES.count(shape))
     return sums
 
 
@@ -446,13 +525,13 @@ def time_route(model, obs: np.ndarray, actions: np.ndarray) -> dict:
 def reset_launches() -> None:
     fused_lstm_gates.launches = 0
     fused_lstm_gates_bwd.launches = 0
-    fused_scale_shift_leaky_relu.launches = 0
+    fused_batch_norm_leaky_relu.launches = 0
 
 
 def read_launches() -> dict:
     return {"convlstm_gates": fused_lstm_gates.launches,
             "convlstm_gates_bwd": fused_lstm_gates_bwd.launches,
-            "fused_norm_act": fused_scale_shift_leaky_relu.launches}
+            "fused_norm_act": fused_batch_norm_leaky_relu.launches}
 
 
 def flagship_trainer() -> Trainer:
@@ -556,33 +635,25 @@ def train_parity() -> dict:
 
 
 def time_gate_kernels_in_training(gen) -> dict:
-    """Phase 9a: K1's and K2's device time, bound and plain time per launch
+    """Phase 9a: K1's and K2's device times, bound and plain time per launch
     at the training shapes (bf16); returns K2's sums over one training
     step (K1's summary stays that of the play step)."""
     dtype, size = torch.bfloat16, 2
-    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
-    for shape in GATE_TRAIN_SHAPES:
-        args = gate_backward_inputs(shape, dtype, gen)
-        elements = args[1].numel()
+    total = {}
+    for shape in unique(GATE_TRAIN_SHAPES):
+        elements = math.prod(shape)
         # Per state element K1 reads 4 gates and c and writes h' and c'; K2
         # reads 4 gates, c, dh and dc and writes 4 gate gradients and
         # dc_prev.
-        for name, kernel, plain, kernel_args, bytes_per_element, ops in (
-                ("convlstm_gates", fused_lstm_gates, _gate_math, args[:2], 7 * size,
-                 GATE_OPS_PER_ELEMENT),
-                ("convlstm_gates_bwd", fused_lstm_gates_bwd, _gate_math_bwd, args, 12 * size,
-                 GATE_BWD_OPS_PER_ELEMENT)):
-            bound, bound_by = bound_ms(elements * bytes_per_element, elements * ops)
-            ms = device_ms(lambda: kernel(*kernel_args))
-            plain_ms = device_ms(lambda: plain(*kernel_args), launches=20)
-            emit(phase="kernel_time", kernel=name, shape=shape, dtype="bf16", us=ms * 1e3,
-                 bound_us=bound * 1e3, bound_by=bound_by, plain_us=plain_ms * 1e3)
-            if name == "convlstm_gates_bwd":
-                total["ms"] += ms * DYNAMICS_STEPS
-                total["plain_ms"] += plain_ms * DYNAMICS_STEPS
-                total["bound_ms"] += bound * DYNAMICS_STEPS
-                total["bound_by"] = bound_by
-    return total
+        kernel_time("convlstm_gates", shape, fused_lstm_gates, _gate_math,
+                    lambda: gate_inputs(shape, dtype, gen), elements * 7 * size,
+                    elements * GATE_OPS_PER_ELEMENT)
+        times = kernel_time("convlstm_gates_bwd", shape, fused_lstm_gates_bwd, _gate_math_bwd,
+                            lambda: gate_backward_inputs(shape, dtype, gen),
+                            elements * 12 * size, elements * GATE_BWD_OPS_PER_ELEMENT)
+        add_to(total, "convlstm_gates_bwd", times,
+               GATE_TRAIN_SHAPES.count(shape) * DYNAMICS_STEPS)
+    return total["convlstm_gates_bwd"]
 
 
 def time_train(trainer: Trainer, batch) -> dict:
@@ -644,6 +715,72 @@ def breakdown(kernels, top: int) -> dict:
                 port=rows(k for k in kernels if kernel_group(k[0]) == "port_kernels"))
 
 
+KERNEL_NAME = re.compile(r"\d+([a-z_]+?_kernel)I(13__nv_bfloat16|f)(?:Li(\d+)E)?")
+PTXAS_KERNEL = re.compile(r"(?:Compiling entry function '|Function properties for )([\w$]+)")
+PTXAS_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+PTXAS_REGISTERS = re.compile(r"Used (\d+) registers")
+SASS_KERNEL = re.compile(r"Function : (\S+)")
+SASS_INSTRUCTION = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?!NOP\b)\S")
+
+
+def kernel_label(mangled: str) -> str:
+    """'gates_fwd_kernel<bf16,8>' for a kernel's mangled name."""
+    m = KERNEL_NAME.search(mangled)
+    if m is None:
+        return mangled
+    args = ["bf16" if m.group(2) == "13__nv_bfloat16" else "f32"]
+    return f"{m.group(1)}<{','.join(args + [m.group(3)] * bool(m.group(3)))}>"
+
+
+def kernel_report(logs: dict) -> dict:
+    """Each kernel's registers and spills from nvcc's ``-Xptxas=-v`` output
+    and, where the toolkit has ``cuobjdump``, its static SASS instruction
+    count (NOPs aside)."""
+    report, current = {}, {}
+    for line in "\n".join(logs.values()).splitlines():
+        if m := PTXAS_KERNEL.search(line):
+            current = report.setdefault(kernel_label(m.group(1)), {})
+        elif m := PTXAS_SPILLS.search(line):
+            current.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif m := PTXAS_REGISTERS.search(line):
+            current["registers"] = int(m.group(1))
+    cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
+    if not cuobjdump.is_file():
+        return report
+    for name in build.sources():
+        sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path(name))],
+                              capture_output=True, text=True, check=True, timeout=120).stdout
+        for line in sass.splitlines():
+            if m := SASS_KERNEL.search(line):
+                current = report.setdefault(kernel_label(m.group(1)), {})
+                current["sass_instructions"] = 0
+            elif SASS_INSTRUCTION.search(line):
+                current["sass_instructions"] += 1
+    return report
+
+
+def check_norm_call(model, gen) -> None:
+    """Phase 4b: one of the model's frozen BatchNorm + LeakyReLU calls,
+    profiled, runs exactly one kernel, K3, with no fold or cast around it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    norm = next(m for m in model.modules()
+                if isinstance(m, BatchNorm) and m.activation == "leaky_relu")
+    x = on_card((1, norm.weight.shape[0], 64, 64), torch.bfloat16, gen)
+    with torch.no_grad():
+        norm(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            norm(x)
+            torch.cuda.synchronize()
+    kernels = [(e.key, e.count) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    require(len(kernels) == 1 and kernels[0][1] == 1
+            and "batch_norm_leaky_relu_kernel" in kernels[0][0],
+            f"a frozen BatchNorm + LeakyReLU call ran {kernels}")
+    emit(phase="norm_call", channels=norm.weight.shape[0], kernels=kernels)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is False; it needs an "
@@ -655,8 +792,7 @@ def main() -> None:
     t0 = time.perf_counter()
     logs = build.build()
     emit(phase="build", seconds=time.perf_counter() - t0, sources=build.sources(),
-         ptxas=[line.strip() for log in logs.values() for line in log.splitlines()
-                if "registers" in line or "spill" in line])
+         kernels=kernel_report(logs))
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errors = check_kernels(gen)
@@ -667,6 +803,7 @@ def main() -> None:
     actions = rng.integers(0, 7, ROLLOUT_FRAMES)
     model = flagship_model("cuda", torch.bfloat16, SEED)
     play_launches = play_route(model, obs, actions)
+    check_norm_call(model, gen)
     route_parity(obs, actions)
 
     sums = time_kernels(gen)
@@ -686,6 +823,7 @@ def main() -> None:
                     source=f"playablevideogeneration_tpu_torch/ops/cuda/csrc/{source}.cu",
                     replaces=replaces, launches=play_launches[name] + train_launches[name],
                     max_abs_err=errors[name], ms=sums[name]["ms"],
+                    cold_ms=sums[name]["cold_ms"],
                     plain_ms=sums[name]["plain_ms"], bound_ms=sums[name]["bound_ms"],
                     bound_by=sums[name]["bound_by"], library_ms=None)
                for name, (source, replaces) in KERNELS.items()]

@@ -33,8 +33,7 @@ from torch import nn
 from playablevideogeneration_tpu_torch.ops.cuda.convlstm_gates import fused_lstm_gates
 from playablevideogeneration_tpu_torch.ops.cuda.fused_norm_act import (
     NEGATIVE_SLOPE,
-    fold_batch_norm,
-    fused_scale_shift_leaky_relu,
+    fused_batch_norm_leaky_relu,
 )
 
 EPS = 1e-5
@@ -124,11 +123,11 @@ class BatchNorm(nn.Module):
     statistics.
 
     In evaluation mode it uses the running statistics, and
-    ``activation='leaky_relu'`` runs the pair as the fused epilogue kernel
-    over the folded scale/shift, rounded to the input's dtype first exactly
-    as the JAX path rounds them (``_FrozenBNLeakyRelu``).  Every BatchNorm
-    of the model is affine, so the JAX block's ``affine=False`` is not
-    ported.
+    ``activation='leaky_relu'`` runs the pair as one launch of the fused
+    epilogue kernel, which folds the raw statistics into a scale and shift
+    and rounds them to the input's dtype exactly as the JAX path rounds
+    them (``_FrozenBNLeakyRelu``).  Every BatchNorm of the model is
+    affine, so the JAX block's ``affine=False`` is not ported.
     """
 
     def __init__(self, features: int, activation: Optional[str] = None):
@@ -144,10 +143,8 @@ class BatchNorm(nn.Module):
         if self.training:
             return self._train_forward(x)
         if self.activation == "leaky_relu":
-            a, b = fold_batch_norm(self.weight, self.bias, self.running_mean,
-                                   self.running_var, EPS)
-            return fused_scale_shift_leaky_relu(x, a.to(x.dtype).float(),
-                                                b.to(x.dtype).float())
+            return fused_batch_norm_leaky_relu(x, self.weight, self.bias, self.running_mean,
+                                               self.running_var, EPS)
         return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                             self.bias, False, 0.0, EPS)
 

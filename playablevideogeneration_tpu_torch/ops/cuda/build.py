@@ -3,13 +3,16 @@
 Each ``csrc/<name>.cu`` exports a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under ``_build/``
 (listed in ``.gitignore``) the first time it is needed.  A library's file
-name carries a hash of its source and of the compiler flags, so an edited
-source is rebuilt and a stale library is never loaded.  Building a plain
-C interface takes seconds; nothing here includes PyTorch's headers.
+name carries a hash of its source, of the headers under ``csrc/`` and of
+the compiler flags, so an edited source is rebuilt and a stale library is
+never loaded.  Building a plain C interface takes seconds; nothing here
+includes PyTorch's headers.
 
 Every C entry point takes its pointers and the CUDA stream as
 ``void*`` (``ctypes.c_void_p``) and returns ``cudaGetLastError()`` right
 after its launch; ``check`` turns a non-zero status into an exception.
+An elementwise kernel also takes the elements per access that
+``vector_width`` chooses for its tensors.
 """
 from __future__ import annotations
 
@@ -47,9 +50,30 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     source = CSRC_DIR / f"{name}.cu"
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
+
+
+# A launch takes packs only where each stream moves at least this many
+# bytes: a smaller launch sits at the launch floor, where one element per
+# thread keeps more threads in flight to cover the latency.
+MIN_PACKED_BYTES = 512 * 1024
+
+
+def vector_width(length: int, *tensors, elements: int) -> int:
+    """Elements per access for a kernel that walks runs of ``length``
+    consecutive elements of each tensor, every run starting at a multiple
+    of ``length``, in packs of ``elements``: ``elements`` when ``length`` is
+    a multiple of it, the first tensor holds at least ``MIN_PACKED_BYTES``
+    and every tensor's data is aligned to a pack, else 1.  All the tensors
+    share one element size."""
+    size = tensors[0].element_size()
+    if (length % elements or tensors[0].numel() * size < MIN_PACKED_BYTES
+            or any(t.data_ptr() % (elements * size) for t in tensors)):
+        return 1
+    return elements
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:

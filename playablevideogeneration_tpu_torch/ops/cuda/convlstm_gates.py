@@ -13,7 +13,9 @@ fused 4C-channel gate convolution's output and the cell state once and
 writes only (h', c'), 14 bytes per state element in bf16; the backward
 reads (gates, c, dh, dc) and writes (dgates, dc_prev), 24 bytes per state
 element in bf16, 50 MB (15 us at 3.35 TB/s) for the flagship's 32x32x128
-state at the training batch of 16.
+state at the training batch of 16.  The forward walks each batch slice
+with a pack of 4 elements per stream and thread where
+``build.vector_width`` allows it, one element per thread otherwise.
 """
 from __future__ import annotations
 
@@ -25,8 +27,10 @@ import torch
 from playablevideogeneration_tpu_torch.ops.cuda import build
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# Elements per thread of K1's packed path (``kFwdPack`` in the source).
+_PACK = 4
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                                     ctypes.c_void_p]
+                                     ctypes.c_int, ctypes.c_void_p]
 _BWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
                                          ctypes.c_void_p]
 
@@ -97,11 +101,12 @@ def _forward(gates: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.
     _require_cuda(c)
     new_h = torch.empty_like(c)
     new_c = torch.empty_like(c)
+    chw = c.shape[1] * c.shape[2] * c.shape[3]
     symbol = f"convlstm_gates_fwd_{_SUFFIX[c.dtype]}"
     fn = build.function("convlstm_gates", symbol, _ARGTYPES)
     status = fn(gates.data_ptr(), c.data_ptr(), new_h.data_ptr(), new_c.data_ptr(),
-                c.numel(), c.shape[1] * c.shape[2] * c.shape[3], c.device.index,
-                torch.cuda.current_stream(c.device).cuda_stream)
+                c.shape[0], chw, build.vector_width(chw, c, gates, new_h, new_c, elements=_PACK),
+                c.device.index, torch.cuda.current_stream(c.device).cuda_stream)
     build.check(status, "convlstm_gates", symbol)
     fused_lstm_gates.launches += 1
     return new_h, new_c
@@ -165,6 +170,10 @@ def fused_lstm_gates(gates: torch.Tensor, c: torch.Tensor
     K1's launches.
     """
     _check(gates, c)
+    slice_size = gates.shape[1:].numel()
+    if slice_size >= 2 ** 31:  # K1's offsets inside a batch slice are 32-bit
+        raise ValueError(f"a batch slice of gates holds {slice_size} elements, "
+                         f"not below 2**31")
     if torch.is_grad_enabled() and (gates.requires_grad or c.requires_grad):
         return _FusedGates.apply(gates, c)
     return _forward(gates, c)

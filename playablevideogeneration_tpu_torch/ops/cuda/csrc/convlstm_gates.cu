@@ -17,19 +17,38 @@
 //   dc_prev = d_c'*f
 // Storage is float or bf16; the math is f32, with each product and sum
 // rounded as the plain PyTorch versions round them, in their order (no FMA
-// contraction), so kernel and plain version agree to the last bit of f32
-// apart from expf/tanhf.
+// contraction), IEEE expf and tanhf and __frcp_rn (no fast math), so kernel
+// and plain version agree bit for bit.
 //
-// Bound on an H100: memory.  Every element is read or written once.  K1:
-// 14 bytes per state element in bf16 (4 gates + c in, h' + c' out), about
-// 1.8 MB for the flagship's 32x32x128 state at batch 1, 0.55 us at 3.35
-// TB/s -- below the cost of a launch.  K2: 24 bytes per state element in
-// bf16 (4 gates, c, dh, dc in; 4 dgates, dc_prev out), 50 MB (15 us) for
-// the 32x32x128 state at the training batch of 16.
-// Design: one thread per state element in a grid-stride loop; neighbouring
-// threads touch neighbouring addresses in every stream (7 for K1, 12 for
-// K2).  The TPU kernels' 512-row tiling existed for VMEM and has no
-// counterpart here.
+// K1 on an H100.  It moves 14 bytes per state element in bf16 (4 gates and
+// c in, h' and c' out): 29 MB, 8.8 us at 3.35 TB/s, for the training
+// batch's 16x128x32x32 state; at batch 1 (1.8 MB) a launch costs more than
+// the traffic.  At the training shapes instruction issue binds it as much:
+// three expf, three reciprocals and two tanhf per element come to about
+// 148 SASS instructions per element (static count, chip_smoke.py), 9.3 us
+// of issue at 16x128x32x32 on 132 SMs at 1.98 GHz, above the 8.8 us of
+// memory.  So the design keeps both the memory system and the issue slots
+// busy:
+//   - a 2-D grid: blockIdx.y is the batch index, blockIdx.x a chunk of the
+//     C*H*W slice, so gate k of slice offset r is at b*4*chw + k*chw + r,
+//     with no divide per element and 32-bit offsets inside a slice (the
+//     wrapper raises if 4*C*H*W >= 2^31);
+//   - a pack of 4 consecutive elements per stream and thread (8-byte
+//     accesses in bf16, 16-byte in f32), one step per thread: on an H100
+//     80GB HBM3 at 700 W this beat 16-byte bf16 packs, which give half
+//     the threads twice the math, and a loop of steps that loads the next
+//     pack before computing the current one, at both training shapes;
+//   - one element per thread where C*H*W is no multiple of 4, a pointer is
+//     not aligned to a pack, or c holds under 512 KiB (the batch-1 play
+//     shapes, where more threads cover the latency better); the wrapper
+//     decides (build.vector_width) and passes 1, and the same kernel runs.
+// K2 moves 24 bytes per state element in bf16 (4 gates, c, dh, dc in; 4
+// dgates, dc_prev out), 50 MB (15 us) for the 16x128x32x32 state, and
+// reaches half of that bound (H100 80GB HBM3, 700 W) with one thread per
+// element in a grid-stride loop, neighbouring threads on neighbouring
+// addresses in all 12 streams.
+// The TPU kernels' 512-row tiling existed for VMEM and has no counterpart
+// here.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -37,40 +56,47 @@
 #include <algorithm>
 #include <cstdint>
 
+#include "packs.cuh"
+
 namespace {
-
-__device__ __forceinline__ float load_f32(float v) { return v; }
-__device__ __forceinline__ float load_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T store_as(float v);
-template <>
-__device__ __forceinline__ float store_as<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 store_as<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 __device__ __forceinline__ float sigmoid(float v) {
   return __frcp_rn(__fadd_rn(1.0f, expf(-v)));
 }
 
-template <typename T>
-__global__ void gates_fwd_kernel(const T* __restrict__ gates, const T* __restrict__ c,
-                                 T* __restrict__ h_out, T* __restrict__ c_out,
-                                 int64_t n, int64_t chw) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; e < n;
-       e += stride) {
-    // Element e = b*chw + r sits at b*4*chw + k*chw + r for gate k.
-    const int64_t base = e + 3 * (e / chw) * chw;
-    const float i = sigmoid(load_f32(gates[base]));
-    const float f = sigmoid(load_f32(gates[base + chw]));
-    const float o = sigmoid(load_f32(gates[base + 2 * chw]));
-    const float g = tanhf(load_f32(gates[base + 3 * chw]));
-    const float new_c = __fadd_rn(__fmul_rn(f, load_f32(c[e])), __fmul_rn(i, g));
-    c_out[e] = store_as<T>(new_c);
-    h_out[e] = store_as<T>(__fmul_rn(o, tanhf(new_c)));
+constexpr int kFwdThreads = 256;
+// Elements per thread of K1's packed path.
+constexpr int kFwdPack = 4;
+
+// N consecutive elements of one batch slice per thread: N == 1 or a pack;
+// gridDim.y batch rows at a time.
+template <typename T, int N>
+__global__ void __launch_bounds__(kFwdThreads)
+    gates_fwd_kernel(const T* __restrict__ gates, const T* __restrict__ c,
+                     T* __restrict__ h_out, T* __restrict__ c_out, int64_t batch, int chw) {
+  const int r = static_cast<int>((blockIdx.x * kFwdThreads + threadIdx.x) * N);
+  if (r >= chw) return;
+  for (int64_t b = blockIdx.y; b < batch; b += gridDim.y) {
+    const T* g = gates + b * 4 * chw + r;
+    const int64_t s = b * chw + r;
+    Pack<T, N> in[5];
+    in[0].load(g);
+    in[1].load(g + chw);
+    in[2].load(g + 2 * chw);
+    in[3].load(g + 3 * chw);
+    in[4].load(c + s);
+    float new_h[N], new_c[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float i = sigmoid(in[0][j]);
+      const float f = sigmoid(in[1][j]);
+      const float o = sigmoid(in[2][j]);
+      const float u = tanhf(in[3][j]);
+      new_c[j] = __fadd_rn(__fmul_rn(f, in[4][j]), __fmul_rn(i, u));
+      new_h[j] = __fmul_rn(o, tanhf(new_c[j]));
+    }
+    store_pack<N>(c_out + s, new_c);
+    store_pack<N>(h_out + s, new_h);
   }
 }
 
@@ -110,16 +136,23 @@ int grid_for(int64_t n, int threads) {
 }
 
 template <typename T>
-int launch(const void* gates, const void* c, void* h_out, void* c_out, int64_t n,
-           int64_t chw, int device, void* stream) {
+int launch(const void* gates, const void* c, void* h_out, void* c_out, int64_t batch,
+           int64_t chw, int vec, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n == 0) return 0;
-  const int threads = 256;
-  gates_fwd_kernel<T><<<grid_for(n, threads), threads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  if (batch == 0 || chw == 0) return 0;
+  const bool packed = vec == kFwdPack && chw % kFwdPack == 0 &&
+                      aligned_for<T, kFwdPack>(gates) && aligned_for<T, kFwdPack>(c) &&
+                      aligned_for<T, kFwdPack>(h_out) && aligned_for<T, kFwdPack>(c_out);
+  if (4 * chw >= (int64_t{1} << 31) || !(packed || vec == 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned>((chw / vec + kFwdThreads - 1) / kFwdThreads),
+                  static_cast<unsigned>(std::min(batch, kMaxGrid)));
+  const auto kernel = packed ? gates_fwd_kernel<T, kFwdPack> : gates_fwd_kernel<T, 1>;
+  kernel<<<grid, kFwdThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(gates), static_cast<const T*>(c), static_cast<T*>(h_out),
-      static_cast<T*>(c_out), n, chw);
+      static_cast<T*>(c_out), batch, static_cast<int>(chw));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -144,13 +177,13 @@ int launch_bwd(const void* gates, const void* c, const void* dh, const void* dc,
 extern "C" {
 
 int convlstm_gates_fwd_f32(const void* gates, const void* c, void* h_out, void* c_out,
-                           int64_t n, int64_t chw, int device, void* stream) {
-  return launch<float>(gates, c, h_out, c_out, n, chw, device, stream);
+                           int64_t batch, int64_t chw, int vec, int device, void* stream) {
+  return launch<float>(gates, c, h_out, c_out, batch, chw, vec, device, stream);
 }
 
 int convlstm_gates_fwd_bf16(const void* gates, const void* c, void* h_out, void* c_out,
-                            int64_t n, int64_t chw, int device, void* stream) {
-  return launch<__nv_bfloat16>(gates, c, h_out, c_out, n, chw, device, stream);
+                            int64_t batch, int64_t chw, int vec, int device, void* stream) {
+  return launch<__nv_bfloat16>(gates, c, h_out, c_out, batch, chw, vec, device, stream);
 }
 
 int convlstm_gates_bwd_f32(const void* gates, const void* c, const void* dh,

@@ -1,12 +1,15 @@
-"""Frozen-BatchNorm + LeakyReLU epilogue: a CUDA kernel and its plain version.
+"""Frozen-BatchNorm + LeakyReLU: a CUDA kernel and its plain version.
 
 Counterpart of ``playablevideogeneration_tpu/ops/pallas/fused_norm_act.py``.
 The kernel (``csrc/fused_norm_act.cu``) replaces the Pallas TPU kernel
-``_kernel`` (its ``pl.pallas_call`` in ``fused_scale_shift_leaky_relu``):
-y = leaky_relu(x * a + b) with the frozen statistics folded into per-channel
-a, b by ``fold_batch_norm``, in one pass over x.  Its bound on an H100 is
-memory traffic: 4 bytes per element in bf16, 8.4 MB (2.5 us at 3.35 TB/s)
-at the flagship's largest shape, 256x256x32.
+``_kernel`` (its ``pl.pallas_call`` in ``fused_scale_shift_leaky_relu``)
+and the fold its caller runs first: it takes the BatchNorm's raw scale,
+bias, running mean and running variance, folds them into per-channel
+a, b (rounded to x's dtype, as the JAX path rounds them) in registers, and
+writes y = leaky_relu(x * a + b) in one pass over x, so a call is one
+launch.  Its bound on an H100 is memory traffic: 4 bytes per element in
+bf16, 8.4 MB (2.5 us at 3.35 TB/s) at the flagship's largest shape,
+256x256x32.
 """
 from __future__ import annotations
 
@@ -19,8 +22,8 @@ from playablevideogeneration_tpu_torch.ops.cuda import build
 
 NEGATIVE_SLOPE = 0.2
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 3 + [
+    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def fold_batch_norm(scale: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
@@ -31,52 +34,68 @@ def fold_batch_norm(scale: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
     return a, bias - mean * a
 
 
-def _scale_shift_leaky_relu(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor
-                            ) -> torch.Tensor:
-    """Plain PyTorch version: f32 math, x's dtype out."""
+def _batch_norm_leaky_relu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                           mean: torch.Tensor, var: torch.Tensor, eps: float = 1e-5
+                           ) -> torch.Tensor:
+    """Plain PyTorch version: the f32 fold, a and b rounded to x's dtype,
+    f32 math, x's dtype out."""
+    a, b = fold_batch_norm(scale, bias, mean, var, eps)
+    a, b = a.to(x.dtype).float(), b.to(x.dtype).float()
     y = x.float() * a.view(1, -1, 1, 1) + b.view(1, -1, 1, 1)
     return torch.where(y >= 0, y, y * NEGATIVE_SLOPE).to(x.dtype)
 
 
-def _check(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> None:
+def _check(x: torch.Tensor, statistics: Tuple[torch.Tensor, ...]) -> None:
     if x.dim() != 4:
         raise ValueError(f"expected an NCHW x, got {tuple(x.shape)}")
     channels = x.shape[1]
-    if tuple(a.shape) != (channels,) or tuple(b.shape) != (channels,):
-        raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} must be "
-                         f"({channels},) for x {tuple(x.shape)}")
+    if any(tuple(s.shape) != (channels,) for s in statistics):
+        raise ValueError(f"scale, bias, mean and var {[tuple(s.shape) for s in statistics]} "
+                         f"must be ({channels},) for x {tuple(x.shape)}")
+    # The kernel counts (batch, channel) planes and offsets inside a plane
+    # in 32 bits.
+    if x.shape[0] * x.shape[1] >= 2 ** 31 or x.shape[2] * x.shape[3] >= 2 ** 31:
+        raise ValueError(f"x {tuple(x.shape)} must have below 2**31 planes of below "
+                         f"2**31 elements")
     if x.dtype not in _SUFFIX:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-    if a.dtype != torch.float32 or b.dtype != torch.float32:
-        raise TypeError(f"a and b must be float32, got {a.dtype} and {b.dtype}")
-    if not (a.device == b.device == x.device):
-        raise ValueError(f"x, a, b on {x.device}, {a.device}, {b.device}")
-    if not (x.is_contiguous() and a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("x, a and b must be contiguous")
+    if any(s.dtype != torch.float32 for s in statistics):
+        raise TypeError(f"scale, bias, mean and var must be float32, got "
+                        f"{[s.dtype for s in statistics]}")
+    if any(s.device != x.device for s in statistics):
+        raise ValueError(f"x on {x.device}, statistics on {[str(s.device) for s in statistics]}")
+    if not (x.is_contiguous() and all(s.is_contiguous() for s in statistics)):
+        raise ValueError("x, scale, bias, mean and var must be contiguous")
 
 
-def fused_scale_shift_leaky_relu(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor
-                                 ) -> torch.Tensor:
-    """y = leaky_relu(x * a + b, 0.2) for x (B, C, H, W) and f32 a, b of shape (C,).
+def fused_batch_norm_leaky_relu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                                mean: torch.Tensor, var: torch.Tensor, eps: float = 1e-5
+                                ) -> torch.Tensor:
+    """leaky_relu(BatchNorm(x), 0.2) with frozen statistics, for x (B, C, H, W)
+    and the BatchNorm's f32 scale, bias, running mean and running variance,
+    each of shape (C,).
 
-    Launches the CUDA kernel for CUDA tensors and runs the plain version for
-    CPU tensors; any other device raises.
-    ``fused_scale_shift_leaky_relu.launches`` counts the kernel launches.
+    Launches the CUDA kernel (fold included) for CUDA tensors and runs
+    ``_batch_norm_leaky_relu`` for CPU tensors; any other device raises.
+    ``fused_batch_norm_leaky_relu.launches`` counts the kernel launches.
     """
-    _check(x, a, b)
+    statistics = (scale, bias, mean, var)
+    _check(x, statistics)
     if x.device.type == "cpu":
-        return _scale_shift_leaky_relu(x, a, b)
+        return _batch_norm_leaky_relu(x, *statistics, eps)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     y = torch.empty_like(x)
-    symbol = f"scale_shift_leaky_relu_{_SUFFIX[x.dtype]}"
+    hw = x.shape[2] * x.shape[3]
+    symbol = f"batch_norm_leaky_relu_{_SUFFIX[x.dtype]}"
     fn = build.function("fused_norm_act", symbol, _ARGTYPES)
-    status = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), x.numel(),
-                x.shape[2] * x.shape[3], x.shape[1], NEGATIVE_SLOPE, x.device.index,
+    status = fn(x.data_ptr(), *(s.data_ptr() for s in statistics), y.data_ptr(),
+                x.shape[0] * x.shape[1], x.shape[1], hw, eps, NEGATIVE_SLOPE,
+                build.vector_width(hw, x, y, elements=16 // x.element_size()), x.device.index,
                 torch.cuda.current_stream(x.device).cuda_stream)
     build.check(status, "fused_norm_act", symbol)
-    fused_scale_shift_leaky_relu.launches += 1
+    fused_batch_norm_leaky_relu.launches += 1
     return y
 
 
-fused_scale_shift_leaky_relu.launches = 0
+fused_batch_norm_leaky_relu.launches = 0

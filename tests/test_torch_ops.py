@@ -22,7 +22,7 @@ from playablevideogeneration_tpu_torch.ops.cuda.convlstm_gates import (
 )
 from playablevideogeneration_tpu_torch.ops.cuda.fused_norm_act import (
     fold_batch_norm,
-    fused_scale_shift_leaky_relu,
+    fused_batch_norm_leaky_relu,
 )
 
 # (batch, H, W, channels); rows = batch*H*W.  The second and third are
@@ -152,6 +152,9 @@ def _norm_inputs(seed, shape):
 
 @pytest.mark.parametrize("shape", [(2, 6, 6, 16), (1, 5, 7, 65), (1, 32, 32, 65)])
 def test_norm_act_matches_pallas_kernel(shape):
+    """The port takes the raw statistics and folds them itself; the JAX
+    reference folds them with its own ``fold_batch_norm`` and runs the
+    Pallas kernel in interpret mode."""
     x, stats = _norm_inputs(len(shape) + shape[-1], shape)
     a_jax, b_jax = jax_norm_act.fold_batch_norm(*map(jnp.asarray, stats), eps=1e-5)
     want = jax_norm_act.fused_scale_shift_leaky_relu(
@@ -160,25 +163,102 @@ def test_norm_act_matches_pallas_kernel(shape):
     # XLA may compute the fold as scale * rsqrt(var + eps): 1 ulp apart.
     np.testing.assert_allclose(a.numpy(), np.asarray(a_jax), rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(b.numpy(), np.asarray(b_jax), rtol=1e-6, atol=1e-6)
-    got = fused_scale_shift_leaky_relu(nchw(x), a, b)
+    got = fused_batch_norm_leaky_relu(nchw(x), *map(torch.from_numpy, stats), 1e-5)
+    assert got.dtype == torch.float32 and got.is_contiguous()
     np.testing.assert_allclose(nhwc(got), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
 def test_norm_act_bf16_rounds_coefficients_like_pallas_kernel():
     """bf16 storage: the Pallas kernel rounds a, b to x's dtype before its
-    f32 math; the port's caller does the same rounding before the call."""
+    f32 math; the port rounds its own fold of the raw statistics the same
+    way (inside the kernel on the card, in the plain version here)."""
     x, stats = _norm_inputs(11, (1, 8, 8, 65))
     x_bf16 = jnp.asarray(x).astype(jnp.bfloat16)
     a_jax, b_jax = jax_norm_act.fold_batch_norm(*map(jnp.asarray, stats), eps=1e-5)
     want = jax_norm_act.fused_scale_shift_leaky_relu(x_bf16, a_jax, b_jax,
                                                      interpret=True)
-    a, b = fold_batch_norm(*map(torch.from_numpy, stats), eps=1e-5)
     x_torch = nchw(np.asarray(x_bf16.astype(jnp.float32))).to(torch.bfloat16)
-    got = fused_scale_shift_leaky_relu(x_torch, a.to(torch.bfloat16).float(),
-                                       b.to(torch.bfloat16).float())
+    got = fused_batch_norm_leaky_relu(x_torch, *map(torch.from_numpy, stats), 1e-5)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(nhwc(got), np.asarray(want.astype(jnp.float32)),
                                rtol=1e-5, atol=1e-5)
+    # Unrounded coefficients give another answer: the rounding is pinned.
+    a, b = fold_batch_norm(*map(torch.from_numpy, stats), eps=1e-5)
+    unrounded = (x_torch.float() * a.view(1, -1, 1, 1) + b.view(1, -1, 1, 1))
+    unrounded = torch.where(unrounded >= 0, unrounded, unrounded * 0.2).bfloat16()
+    assert not torch.equal(unrounded, got)
+
+
+def test_eval_batch_norm_leaky_relu_is_one_wrapper_call(monkeypatch):
+    """In evaluation mode a BatchNorm followed by LeakyReLU hands its raw
+    parameters and running statistics to the fused wrapper and runs no
+    other operation: on the card a call is one launch, with no fold or
+    cast around it."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from playablevideogeneration_tpu_torch.models import layers
+
+    class RecordOps(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(func)
+            return func(*args, **(kwargs or {}))
+
+    calls = []
+    monkeypatch.setattr(layers, "fused_batch_norm_leaky_relu",
+                        lambda *args: calls.append(args) or args[0])
+    norm = layers.BatchNorm(4, activation="leaky_relu").eval()
+    x = torch.ones(1, 4, 3, 3, dtype=torch.bfloat16)
+    with RecordOps() as recorded:
+        y = norm(x)
+    assert recorded.ops == [] and y is x and len(calls) == 1
+    assert all(got is want for got, want in zip(
+        calls[0], (x, norm.weight, norm.bias, norm.running_mean, norm.running_var)))
+    assert calls[0][5] == layers.EPS
+
+
+@pytest.mark.parametrize("dtype,elements,length,offset,rows,want", [
+    (torch.float32, 4, 4 * 9, 0, None, 4),
+    (torch.bfloat16, 8, 8 * 9, 0, None, 8),
+    (torch.bfloat16, 4, 4 * 9, 0, None, 4),     # K1's 8-byte bf16 packs
+    (torch.bfloat16, 8, 4 * 9, 0, None, 1),     # a multiple of 4, not of 8
+    (torch.float32, 4, 5 * 7 * 9, 0, None, 1),  # ragged: C*H*W of (3, 5, 7, 9)
+    (torch.bfloat16, 8, 5 * 7 * 9, 0, None, 1),
+    (torch.float32, 4, 4 * 9, 1, None, 1),      # storage one element into its buffer
+    (torch.bfloat16, 8, 8 * 9, 1, None, 1),
+    (torch.bfloat16, 4, 4 * 9, 1, None, 1),
+    (torch.float32, 4, 4 * 9, 4, None, 4),      # 16 bytes into its buffer: aligned again
+    (torch.bfloat16, 4, 4 * 9, 4, None, 4),     # 8 bytes in: aligned for an 8-byte pack
+    (torch.bfloat16, 8, 8 * 9, 4, None, 1),     # ... but not for a 16-byte one
+    (torch.bfloat16, 8, 8 * 9, 0, 3, 1),        # too few bytes: at the launch floor
+])
+def test_vector_width_needs_whole_aligned_packs(dtype, elements, length, offset, rows, want):
+    """The kernels take packs of ``elements`` per access only where every
+    run of ``length`` elements is whole packs, every tensor is aligned to a
+    pack and the launch moves enough bytes to leave the launch floor;
+    otherwise the same kernel runs one element per thread."""
+    rows = rows or build.MIN_PACKED_BYTES // (length * dtype.itemsize) + 1
+    view = torch.zeros(offset + rows * length, dtype=dtype)[offset:].view(rows, length)
+    fresh = torch.zeros(rows, length, dtype=dtype)
+    assert view.is_contiguous() and fresh.data_ptr() % 16 == 0
+    assert build.vector_width(length, fresh, view, elements=elements) == want
+    assert build.vector_width(length, view, fresh, elements=elements) == want
+
+
+def test_wrappers_reject_planes_beyond_32_bit_offsets():
+    """K1's offsets inside a batch slice, and K3's planes and offsets inside
+    a plane, are 32-bit."""
+    c = torch.empty(1, 2 ** 29, 1, 1, device="meta")
+    with pytest.raises(ValueError, match=r"2\*\*31"):
+        fused_lstm_gates(torch.empty(1, 2 ** 31, 1, 1, device="meta"), c)
+    stat = torch.empty(1, device="meta")
+    for x in (torch.empty(1, 1, 2 ** 16, 2 ** 15, device="meta"),
+              torch.empty(2 ** 31, 1, 1, 1, device="meta")):
+        with pytest.raises(ValueError, match=r"2\*\*31"):
+            fused_batch_norm_leaky_relu(x, stat, stat, stat, stat)
 
 
 def _bad_gate_inputs():
@@ -221,20 +301,27 @@ def test_gate_backward_wrapper_rejects_bad_inputs(case):
 
 def _bad_norm_inputs():
     x = torch.zeros(1, 4, 3, 3)
-    a = torch.ones(4)
+    s = torch.ones(4)
     return {
-        "channels": (x, torch.ones(3), torch.ones(3)),
-        "rank": (x[0], a, a),
-        "dtype": (x.half(), a, a),
-        "coefficient_dtype": (x, a.bfloat16(), a.bfloat16()),
-        "strides": (x.transpose(2, 3), a, a),
+        "channels": (x, torch.ones(3), s, s, torch.ones(3)),
+        "rank": (x[0], s, s, s, s),
+        "dtype": (x.half(), s, s, s, s),
+        "coefficient_dtype": (x, s.bfloat16(), s, s, s),
+        "strides": (x.transpose(2, 3), s, s, s, s),
+        "mean_shape": (x, s, s, torch.ones(4, 1), s),
+        "var_dtype": (x, s, s, s, s.double()),
+        "statistics_device": (x, s, s, s.to("meta"), s),
+        "statistics_strides": (x, s, torch.ones(8)[::2], s, s),
+        "device": tuple(t.to("meta") for t in (x, s, s, s, s)),
     }
 
 
 @pytest.mark.parametrize("case", sorted(_bad_norm_inputs()))
 def test_norm_act_wrapper_rejects_bad_inputs(case):
+    """Shapes, dtypes, devices and contiguity of x and of the four
+    statistics vectors; only CPU tensors take the plain version."""
     with pytest.raises((ValueError, TypeError)):
-        fused_scale_shift_leaky_relu(*_bad_norm_inputs()[case])
+        fused_batch_norm_leaky_relu(*_bad_norm_inputs()[case])
 
 
 def test_kernel_libraries_are_named_by_source_hash():
