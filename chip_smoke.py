@@ -1,5 +1,5 @@
-"""Drives the PyTorch/CUDA port's play and training routes on one NVIDIA
-Hopper GPU.
+"""Drives the PyTorch/CUDA port's play and training routes, and its
+training loop, on one NVIDIA Hopper GPU.
 
 Run from the repository root on a machine with an H100:
 
@@ -14,7 +14,9 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    Reports each kernel's registers and spills (``-Xptxas=-v``) and, where
    the toolkit has ``cuobjdump``, its static SASS instruction count;
 3. kernels: holds each kernel against its plain PyTorch version on the card
-   at every shape the flagship's play and training steps give it, plus a
+   at every shape the flagship's play and training steps give it (batch 1
+   and 16), the training loop's gate shapes at batch 8 and every shape an
+   evaluation batch gives K3 (8 x 30 frames: ``EVAL_NORM_SHAPES``), plus a
    ragged case (3x65x25x40), a C*H*W that is no multiple of a vector
    (3x5x7x9) and inputs whose storage starts one element into its buffer,
    in f32 and bf16: each must equal its plain version bit for bit, and each
@@ -37,8 +39,10 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
 6. timings: each kernel's device time per launch at its flagship shapes,
    warm (the same inputs back to back, in L2) and cold (rotating over
    more than 100 MB of distinct inputs), beside its memory bound and its
-   plain version's time; the play step's latency, the rollout's frame
-   rate, and the step's kernel count and device-time breakdown;
+   plain version's time, and likewise K1 and K2 at the loop's batch of 8
+   and K3 at the three largest shapes of an evaluation batch; the play
+   step's latency, the rollout's frame rate, and the step's kernel count
+   and device-time breakdown;
 7. train route: the bf16 flagship trainer (batch 16, 12 frames, smooth MI,
    per-step activation checkpointing, seeded weights and batch) takes one
    pretraining and three full-phase steps; each must give a finite loss and
@@ -55,17 +59,36 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    the median bf16 train step, ``train_frames_per_sec`` (B*T per step),
    peak device memory, and the device's busy and idle share and
    kernel-time breakdown over two profiled steps (the port's kernels listed
-   one by one).
+   one by one);
+10. train loop: BAIR's config (``BAIR_CONFIG``, pinned to
+   configs/01_bair.yaml by a CPU test, with ``LOOP_OVERRIDES``) through
+   ``cli.train.train`` on in-memory synthetic videos at 256x256 (the card's
+   machine has neither Pillow nor PyYAML): batch 8 at 7 frames, 2
+   pretraining and 4 full-phase steps, ``latest`` and ``checkpoint_6``, and
+   the evaluation's three passes (Gumbel, one-hot, ground truth through the
+   Hungarian mapping) at 8 x 30 frames.  Every train step must give finite
+   values, the schedules' values at its step, and launch K1 and K2 3(T-1)
+   times each and K3 never (steps after an evaluation included); every
+   evaluation batch K1 87 and K3 446 times and K2 never; one-hot samples
+   no entropy and the ground-truth pass accuracy 1; a fresh run's
+   ``load_checkpoint`` must restore every tensor and step exactly, and a
+   second ``train`` must resume and take 2 steps.  Prints the loop's step
+   period beside bare ``train_step``s (batch on the card, batch on the
+   host), evaluation seconds, checkpoint size and save/load seconds, peak
+   memory, and the device's idle share over two profiled loop steps.
 
 It prints JSON lines as it goes, then the kernels' summary line (``ms``,
 ``cold_ms``, ``plain_ms`` and ``bound_ms`` there are per step of the
 kernel's route: the sum over a bf16 play step's launches for K1 and K3,
 over a bf16 training step's 33 K2 launches for K2; ``launches`` counts
-phase 4's run for K3, phase 7's for K2 and both for K1), the card's
-nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+phase 4's, 7's and 10's runs), the card's nvidia-smi line, and last
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
+import io
 import itertools
 import json
 import math
@@ -74,13 +97,21 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
+from playablevideogeneration_tpu_torch.cli.train import build_run, train
+from playablevideogeneration_tpu_torch.config.configuration import Configuration
+from playablevideogeneration_tpu_torch.data.synthetic import make_moving_square_video
+from playablevideogeneration_tpu_torch.data.transforms import get_final_transforms
+from playablevideogeneration_tpu_torch.data.video_dataset import VideoDataset
+from playablevideogeneration_tpu_torch.evaluation.evaluator import Evaluator
 from playablevideogeneration_tpu_torch.inference.play_session import PlaySession
 from playablevideogeneration_tpu_torch.models.caddy import flagship_model
 from playablevideogeneration_tpu_torch.models.layers import BatchNorm
@@ -97,13 +128,76 @@ from playablevideogeneration_tpu_torch.training.bench_harness import (
     make_synthetic_batch,
     make_synthetic_config,
 )
-from playablevideogeneration_tpu_torch.training.trainer import Trainer
 from playablevideogeneration_tpu_torch.ops.cuda.fused_norm_act import (
     _batch_norm_leaky_relu,
     fused_batch_norm_leaky_relu,
 )
+from playablevideogeneration_tpu_torch.training.trainer import Trainer
+from playablevideogeneration_tpu_torch.utils.checkpoint import STATE_FILE
 
 SEED = 0
+# configs/01_bair.yaml as a dict, since the card's machine has no PyYAML;
+# tests/test_torch_data.py pins it to the file.
+BAIR_LOSS_WEIGHTS = {}
+for _name, _value in [("reconstruction_loss_lambda", 1.0), ("perceptual_loss_lambda", 1.0),
+                      ("action_divergence_lambda", 0.0), ("states_rec_lambda", 0.2),
+                      ("entropy_lambda", 0.0), ("action_directions_kl_lambda", 0.0001),
+                      ("action_mutual_information_lambda", 0.15),
+                      ("action_state_distribution_kl_lambda", 0.0)]:
+    BAIR_LOSS_WEIGHTS[_name] = BAIR_LOSS_WEIGHTS[_name + "_pretraining"] = _value
+BAIR_LOSS_WEIGHTS["hidden_states_rec_lambda_pretraining"] = 1.0
+BAIR_CONFIG = {
+    "logging": {"run_name": "01_bair", "output_root": "results", "save_root": "checkpoints"},
+    "data": {"data_root": "data/bair_256_ours", "crop": [0, 0, 256, 256], "actions_count": 7,
+             "ground_truth_available": False},
+    "model": {
+        "architecture": "model.main_model.model",
+        "representation_network": {"target_input_size": [256, 256], "state_features": 64,
+                                   "state_resolution": [32, 32]},
+        "dynamics_network": {"hidden_state_size": 128, "embedding_mlp_size": 128,
+                             "random_noise_size": 32},
+        "rendering_network": {"input_shape": [64, 32, 32]},
+        "action_network": {"use_gumbel": True, "hard_gumbel": False, "ensamble_size": 1,
+                           "gumbel_temperature": 1.0, "action_space_dimension": 2},
+        "centroid_estimator": {"alpha": 0.1},
+    },
+    "training": {
+        "trainer": "training.smooth_mi_trainer", "use_ground_truth_actions": False,
+        "learning_rate": 0.0004, "weight_decay": 0.000001, "pretraining_steps": 1000,
+        "pretraining_detach": False, "lr_schedule": [300000, 10000000000], "lr_gamma": 0.3333,
+        "max_steps": 300000, "save_freq": 3000, "ground_truth_observations_start": 6,
+        "ground_truth_observations_end": 6, "ground_truth_observations_steps": 16000,
+        "gumbel_temperature_start": 1.0, "gumbel_temperature_end": 0.4,
+        "gumbel_temperature_steps": 20000, "mutual_information_estimation_alpha": 0.2,
+        "batching": {"batch_size": 8, "observations_count": 12, "observations_count_start": 7,
+                     "observations_count_steps": 25000, "skip_frames": 0,
+                     "observation_stacking": 1, "num_workers": 16},
+        "loss_weights": BAIR_LOSS_WEIGHTS,
+        "action_direction_plotting_freq": 1000,
+    },
+    "evaluation": {
+        "evaluator": "evaluation.evaluator", "max_evaluation_batches": 20, "eval_freq": 8000,
+        "batching": {"batch_size": 8, "observations_count": 30, "skip_frames": 0,
+                     "observation_stacking": 1, "num_workers": 16},
+    },
+    "evaluation_dataset": {"ground_truth_observations_init": 4,
+                           "builder": "evaluation.evaluation_dataset_builder"},
+    "tpu": {"compute_dtype": "bfloat16"},
+}
+# Phase 10's changes to BAIR_CONFIG, besides the data and output roots
+# (loop_roots): a short run that saves and evaluates, with all three
+# evaluation passes, since the synthetic videos carry their actions.
+LOOP_OVERRIDES = {
+    ("training", "pretraining_steps"): 2,
+    ("training", "max_steps"): 6,
+    ("training", "save_freq"): 3,
+    ("evaluation", "eval_freq"): 6,
+    ("evaluation", "max_evaluation_batches"): 2,
+    ("data", "ground_truth_available"): True,
+}
+# Set after Configuration.check_config has derived the output paths: no
+# example images, since the card's machine has no Pillow to write them.
+CHECKED_OVERRIDES = {("logging", "output_images_directory"): None}
 # Each CUDA kernel: its source and the Pallas TPU kernel (its
 # pl.pallas_call) that it replaces.
 KERNELS = {
@@ -153,6 +247,36 @@ NORM_SHAPES = [
     (1, 64, 128, 128), (1, 64, 128, 128),  # D: up1.norm, res1.bn1
     (1, 32, 256, 256),                     # D: up2.norm
 ]
+# Phase 10, the training loop on BAIR's config: batch 8, the first steps at
+# 7 frames (the length anneals from 7 to 12 over 25 000 steps), evaluation
+# at 8 x 30 frames from one ground-truth frame.
+LOOP_BATCH, LOOP_FRAMES, EVAL_FRAMES = 8, 7, 30
+LOOP_DYNAMICS_STEPS, EVAL_DYNAMICS_STEPS = LOOP_FRAMES - 1, EVAL_FRAMES - 1
+GATE_LOOP_SHAPES = [(LOOP_BATCH, 128, 32, 32), (LOOP_BATCH, 256, 16, 16),
+                    (LOOP_BATCH, 128, 32, 32)]  # lstm0, lstm1, lstm2
+
+
+def eval_norm_shapes(batch: int, frames: int) -> list:
+    """Every K3 launch of one evaluation forward (the model in eval mode,
+    forward_full_model) of ``batch`` sequences of ``frames``: E encodes all
+    batch*frames frames, A runs twice on as many states (the actions, then
+    their re-estimate on the reconstruction), and each of the frames-1
+    dynamics steps runs R, D and E (the window's re-encoding) at ``batch``,
+    as the play step runs them at batch 1."""
+    flat = batch * frames
+    return ([(flat,) + s[1:] for s in NORM_SHAPES[:7]]        # E
+            + [(flat, 128, 16, 16)] * 4                       # A: res0.bn1, res1.bn1, x2
+            + [(batch,) + s[1:] for s in NORM_SHAPES[7:] + NORM_SHAPES[:7]]
+            * (frames - 1))                                   # R, D, E per step
+
+
+EVAL_NORM_SHAPES = eval_norm_shapes(LOOP_BATCH, EVAL_FRAMES)
+EVAL_GATE_LAUNCHES = 3 * EVAL_DYNAMICS_STEPS
+# The synthetic videos: 32 frames at 256x256; 2 train videos give 52 samples
+# at 7 frames (6 batches of 8), 6 validation videos 18 at 30 frames (2).
+LOOP_VIDEO_FRAMES = 32
+LOOP_VIDEOS = {"train": 2, "validation": 6, "test": 1}
+LOOP_TIMED_STEPS = 8
 # Cold timings rotate over distinct inputs totalling at least this much,
 # three times the 50 MB L2, so that each launch finds its inputs in HBM.
 COLD_BYTES = 150e6
@@ -183,6 +307,24 @@ def require(condition: bool, message) -> None:
 
 def emit(**record) -> None:
     print(json.dumps(record), flush=True)
+
+
+def loop_roots(root: str) -> dict:
+    return {("data", "data_root"): os.path.join(root, "data"),
+            ("logging", "output_root"): os.path.join(root, "results"),
+            ("logging", "save_root"): os.path.join(root, "checkpoints")}
+
+
+def loop_config(root: str) -> dict:
+    """Phase 10's checked run config: BAIR_CONFIG with LOOP_OVERRIDES and
+    its outputs under ``root``."""
+    config = copy.deepcopy(BAIR_CONFIG)
+    for (section, key), value in {**LOOP_OVERRIDES, **loop_roots(root)}.items():
+        config[section][key] = value
+    Configuration(config=config).check_config(check_data_root=False)
+    for (section, key), value in CHECKED_OVERRIDES.items():
+        config[section][key] = value
+    return config
 
 
 def nvidia_smi() -> str:
@@ -291,11 +433,12 @@ def check_kernels(gen) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         cases = [("convlstm_gates", s, o, gate_inputs(s, dtype, gen, o), fused_lstm_gates,
                   _gate_math)
-                 for s, o in [(s, 0) for s in unique(GATE_SHAPES + GATE_TRAIN_SHAPES)]
+                 for s, o in [(s, 0) for s in unique(GATE_SHAPES + GATE_TRAIN_SHAPES
+                                                     + GATE_LOOP_SHAPES)]
                  + [(GATE_RAGGED_SHAPE, 0), (UNVECTORED_SHAPE, 0), (GATE_SHAPES[0], 1)]]
         cases += [("fused_norm_act", s, o, norm_inputs(s, dtype, gen, o),
                    fused_batch_norm_leaky_relu, _batch_norm_leaky_relu)
-                  for s, o in [(s, 0) for s in unique(NORM_SHAPES)]
+                  for s, o in [(s, 0) for s in unique(NORM_SHAPES + EVAL_NORM_SHAPES)]
                   + [(UNVECTORED_SHAPE, 0), (NORM_SHAPES[2], 1)]]
         widths = {name: set() for name in errors}
         for name, shape, offset, args, kernel, plain in cases:
@@ -324,7 +467,7 @@ def check_gate_backward(gen) -> float:
     """Phase 3, K2: returns its largest error against ``_gate_math_bwd``."""
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in GATE_TRAIN_SHAPES + [GATE_RAGGED_SHAPE]:
+        for shape in unique(GATE_TRAIN_SHAPES + GATE_LOOP_SHAPES) + [GATE_RAGGED_SHAPE]:
             args = gate_backward_inputs(shape, dtype, gen)
             got, want = fused_lstm_gates_bwd(*args), _gate_math_bwd(*args)
             torch.cuda.synchronize()
@@ -462,6 +605,25 @@ def time_kernels(gen) -> dict:
                             elements * NORM_OPS_PER_ELEMENT)
         add_to(sums, "fused_norm_act", times, NORM_SHAPES.count(shape))
     return sums
+
+
+def time_loop_kernels(gen) -> None:
+    """Phase 6c: K1 and K2 at the loop's batch of 8, and K3 at the three
+    largest shapes of an evaluation batch (bf16, warm and cold)."""
+    dtype, size = torch.bfloat16, 2
+    for shape in unique(GATE_LOOP_SHAPES):
+        elements = math.prod(shape)
+        kernel_time("convlstm_gates", shape, fused_lstm_gates, _gate_math,
+                    lambda: gate_inputs(shape, dtype, gen), elements * 7 * size,
+                    elements * GATE_OPS_PER_ELEMENT)
+        kernel_time("convlstm_gates_bwd", shape, fused_lstm_gates_bwd, _gate_math_bwd,
+                    lambda: gate_backward_inputs(shape, dtype, gen), elements * 12 * size,
+                    elements * GATE_BWD_OPS_PER_ELEMENT)
+    for shape in sorted(unique(EVAL_NORM_SHAPES), key=math.prod, reverse=True)[:3]:
+        elements = math.prod(shape)
+        kernel_time("fused_norm_act", shape, fused_batch_norm_leaky_relu,
+                    _batch_norm_leaky_relu, lambda: norm_inputs(shape, dtype, gen),
+                    elements * 2 * size + 16 * shape[1], elements * NORM_OPS_PER_ELEMENT)
 
 
 def time_route(model, obs: np.ndarray, actions: np.ndarray) -> dict:
@@ -695,6 +857,270 @@ def time_train(trainer: Trainer, batch) -> dict:
     return route
 
 
+def loop_datasets(config: dict) -> dict:
+    """Each split's synthetic moving-square videos (LOOP_VIDEOS of 32 frames
+    at the config's size, seeded), held in memory, so no Pillow is needed."""
+    width, height = config["model"]["representation_network"]["target_input_size"]
+    transforms = get_final_transforms(config)
+    batching = {"train": config["training"]["batching"],
+                "validation": config["evaluation"]["batching"],
+                "test": config["evaluation"]["batching"]}
+    datasets, seed = {}, SEED
+    for name, count in LOOP_VIDEOS.items():
+        videos = [make_moving_square_video(LOOP_VIDEO_FRAMES, height, width, square=height // 8,
+                                           actions_count=config["data"]["actions_count"],
+                                           seed=seed + i, step_pixels=height // 20)
+                  for i in range(count)]
+        seed += count
+        datasets[name] = VideoDataset.from_videos(videos, batching[name], transforms[name])
+    return datasets
+
+
+def launches_since(before: dict) -> dict:
+    return {name: count - before[name] for name, count in read_launches().items()}
+
+
+class LoopRecorder:
+    """Within the block, every ``Trainer.train_step``, evaluation forward
+    and evaluation pass is recorded: its kernel launches, wall time and
+    metrics, and for a step the schedules' values at its global step."""
+
+    def __enter__(self):
+        self.steps, self.forwards, self.passes = [], [], []
+        self._saved = Trainer.train_step, Evaluator._forward, Evaluator.evaluate
+        train_step, forward, evaluate = self._saved
+        steps, forwards, passes = self.steps, self.forwards, self.passes
+
+        def recorded_step(trainer, batch):
+            before, start = read_launches(), time.perf_counter()
+            metrics = train_step(trainer, batch)  # ends in a device-to-host transfer
+            seconds = time.perf_counter() - start
+            length = trainer.get_observations_count()
+            steps.append(dict(
+                step=trainer.global_step, start=start, seconds=seconds,
+                launches=launches_since(before), metrics=dict(metrics),
+                schedules=dict(observations_count=length, gumbel_temperature=(
+                    trainer.get_gumbel_temperature()), ground_truth_observations=min(
+                    trainer.get_ground_truth_observations_count(), length - 1))))
+            return metrics
+
+        def recorded_forward(evaluator, observations, actions, generator):
+            before = read_launches()
+            out = forward(evaluator, observations, actions, generator)
+            forwards.append(dict(label=evaluator._sampler_label,
+                                 frames=tuple(observations.shape[:2]),
+                                 launches=launches_since(before)))
+            return out
+
+        def recorded_evaluate(evaluator, step, save_images=True):
+            start, first = time.perf_counter(), len(forwards)
+            metrics = evaluate(evaluator, step, save_images)  # each batch read back
+            passes.append(dict(label=evaluator._sampler_label,
+                               seconds=time.perf_counter() - start,
+                               batches=len(forwards) - first, metrics=metrics))
+            return metrics
+
+        Trainer.train_step = recorded_step
+        Evaluator._forward = recorded_forward
+        Evaluator.evaluate = recorded_evaluate
+        return self
+
+    def __exit__(self, *exc_info):
+        Trainer.train_step, Evaluator._forward, Evaluator.evaluate = self._saved
+
+
+def state_snapshot(trainer: Trainer) -> dict:
+    """The training state, copied to the host: parameters and buffers,
+    Adam's slots and groups, the schedule, the MI matrix, the steps."""
+    optimizer = trainer.state.optimizer.state_dict()
+    return dict(
+        model={k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()},
+        adam={(i, name): v.detach().cpu().clone() for i, slots in optimizer["state"].items()
+              for name, v in slots.items()},
+        param_groups=optimizer["param_groups"], scheduler=trainer.state.scheduler.state_dict(),
+        mi_matrix=trainer.state.mi_matrix.cpu().clone(), step=trainer.state.step,
+        global_step=trainer.global_step)
+
+
+def require_same_state(got: dict, want: dict) -> None:
+    for part in ("model", "adam"):
+        require(got[part].keys() == want[part].keys(), f"{part}: different entries")
+        for key, value in want[part].items():
+            require(torch.equal(got[part][key], value), f"{part} {key} differs")
+    for key in ("param_groups", "scheduler", "step", "global_step"):
+        require(got[key] == want[key], f"{key}: {got[key]} != {want[key]}")
+    require(torch.equal(got["mi_matrix"], want["mi_matrix"]), "the MI matrix differs")
+
+
+def check_loop_steps(steps: list, pretraining_steps: int) -> None:
+    """Every recorded step: finite loss and gradient norms, its phase, the
+    schedules' values at its global step, and K1 and K2 3(T-1) times each
+    (one launch per ConvLSTM per dynamics step, forward and backward; no
+    per-step checkpointing in BAIR's config), K3 never."""
+    for record in steps:
+        metrics, step = record["metrics"], record["step"]
+        length = metrics["observations_count"]
+        require(np.isfinite(metrics["loss"])
+                and all(np.isfinite(v) for k, v in metrics.items() if k.startswith("grad_norm/")),
+                f"step {step}: {metrics}")
+        require(metrics["pretraining"] == float(step <= pretraining_steps), (step, metrics))
+        for key, value in record["schedules"].items():
+            require(metrics[key] == value, f"step {step}: {key} {metrics[key]} != {value}")
+        want = {"convlstm_gates": 3 * (length - 1), "convlstm_gates_bwd": 3 * (length - 1),
+                "fused_norm_act": 0}
+        require(record["launches"] == want, f"step {step} launched {record['launches']}")
+        emit(phase="loop_step", step=step, pretraining=bool(metrics["pretraining"]),
+             frames=length, ground_truth_observations=metrics["ground_truth_observations"],
+             gumbel_temperature=metrics["gumbel_temperature"], loss=metrics["loss"],
+             seconds=record["seconds"], launches=record["launches"])
+
+
+def check_evaluation(recorder: LoopRecorder) -> None:
+    """The three passes of the cli's evaluation: each batch's forward
+    launches K1 3 times per dynamics step and K3 once per frozen BatchNorm
+    + LeakyReLU (``EVAL_NORM_SHAPES``: 446 at 8 x 30 frames), K2 never;
+    finite metrics; one-hot samples carry no entropy, and the ground-truth
+    sampler, mapped through the Hungarian matching, scores its own
+    accuracy."""
+    want = {"convlstm_gates": EVAL_GATE_LAUNCHES, "convlstm_gates_bwd": 0,
+            "fused_norm_act": len(EVAL_NORM_SHAPES)}
+    require(len(recorder.forwards) == 6, f"{len(recorder.forwards)} evaluation forwards")
+    for forward in recorder.forwards:
+        require(forward["frames"] == (LOOP_BATCH, EVAL_FRAMES), forward)
+        require(forward["launches"] == want, f"evaluation batch launched {forward['launches']}")
+    require([p["label"] for p in recorder.passes] == [None, "one_hot", "gt_actions"],
+            recorder.passes)
+    for record in recorder.passes:
+        metrics = record["metrics"]
+        require(record["batches"] == 2 and metrics
+                and all(np.isfinite(v) for v in metrics.values()), record)
+        prefix = "validation" + (f"/{record['label']}" if record["label"] else "")
+        emit(phase="loop_evaluation", sampler=record["label"] or "gumbel",
+             seconds=record["seconds"], batches=record["batches"],
+             seconds_per_batch=record["seconds"] / record["batches"],
+             launches_per_batch=want,
+             actions_accuracy=metrics[f"{prefix}/actions_accuracy"],
+             samples_entropy=metrics[f"{prefix}/samples_entropy"],
+             observations_loss=metrics[f"{prefix}/observations_loss/avg"],
+             perceptual_loss=metrics[f"{prefix}/perceptual_loss/avg"])
+    one_hot, gt = recorder.passes[1]["metrics"], recorder.passes[2]["metrics"]
+    require(one_hot["validation/one_hot/samples_entropy"] < 1e-5, one_hot)
+    require(gt["validation/gt_actions/actions_accuracy"] > 0.999, gt)
+
+
+def train_loop(root: str) -> dict:
+    """Phase 10: BAIR's config (LOOP_OVERRIDES) through ``cli.train.train``
+    on in-memory synthetic videos: 2 pretraining and 4 full-phase steps,
+    checkpoints, the three evaluation passes; the state restored exactly by
+    a fresh run; a resumed run's 2 more steps; then, on the evaluated
+    trainer, two profiled loop steps and bare ``train_step``s.  Returns the
+    two runs' launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    # The defaults, which phases 5 and 8 turned off: a run's f32
+    # convolutions (the evaluator's VGG) take TF32.
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = loop_config(root)
+    pretraining_steps = config["training"]["pretraining_steps"]
+    datasets = loop_datasets(config)
+    for name, frames, batches in (("train", LOOP_FRAMES, 6), ("validation", EVAL_FRAMES, 2)):
+        datasets[name].set_observations_count(frames)
+        require(len(datasets[name]) // LOOP_BATCH >= batches, (name, len(datasets[name])))
+
+    with LoopRecorder() as recorder:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        trainer = train(config, device="cuda", datasets=datasets)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        loop_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        require([r["step"] for r in recorder.steps] == list(range(1, 7)), recorder.steps)
+        check_evaluation(recorder)
+
+        save_root = config["logging"]["save_root_directory"]
+        require(sorted(os.listdir(save_root)) == ["checkpoint_6", "latest"],
+                os.listdir(save_root))
+        saved = state_snapshot(trainer)  # the evaluation must have changed nothing
+        start = time.perf_counter()
+        trainer.save_checkpoint("timed")
+        save_s = time.perf_counter() - start
+        checkpoint_bytes = os.path.getsize(os.path.join(save_root, "timed", STATE_FILE))
+        _, _, restored, _, _ = build_run(config, device="cuda", datasets=datasets)
+        restored.init_state()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        restored.load_checkpoint()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - start
+        require_same_state(state_snapshot(restored), saved)
+        del restored
+        emit(phase="loop_checkpoint", bytes=checkpoint_bytes, save_s=save_s, load_s=load_s,
+             restored_exactly=True)
+
+        reset_launches()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            resumed = train(config, max_steps=8, device="cuda", datasets=datasets)
+        torch.cuda.synchronize()
+        sys.stdout.write(printed.getvalue())
+        for name, count in read_launches().items():
+            launches[name] += count
+        require("- Resuming from checkpoint" in printed.getvalue(), "the second run did not resume")
+        require(resumed.global_step == 8 and [r["step"] for r in recorder.steps[6:]] == [7, 8],
+                (resumed.global_step, [r["step"] for r in recorder.steps]))
+        del resumed
+
+        # On the evaluated trainer: two loop steps under the profiler, then
+        # bare train_steps on one of its batches, on the device and on the
+        # host as the loader gives it.
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            trainer.train_epoch(max_steps=trainer.global_step + 2)
+            torch.cuda.synchronize()
+            profiled_ms = (time.perf_counter() - start) * 1e3 / 2
+        batch = next(iter(trainer.dataloader))
+        on_device = SimpleNamespace(
+            observations=torch.as_tensor(batch.observations, device=trainer.device),
+            actions=torch.as_tensor(batch.actions, device=trainer.device))
+        torch.cuda.reset_peak_memory_stats()
+        bare_ms = {"device_batch": [], "host_batch": []}
+        for i in range(LOOP_TIMED_STEPS + 1):  # in turns; the first of each warms up
+            for name, bare in (("device_batch", on_device), ("host_batch", batch))[::(-1) ** i]:
+                trainer.train_step(bare)
+                if i:
+                    bare_ms[name].append(recorder.steps[-1]["seconds"] * 1e3)
+        bare_ms = {name: statistics.median(times) for name, times in bare_ms.items()}
+        step_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        check_loop_steps(recorder.steps, pretraining_steps)
+
+    # The loop's step period: from one full-phase step's start to the next's
+    # (the step, the loader's wait, the host copy and the logging).
+    starts = {r["step"]: r["start"] for r in recorder.steps[:6]}
+    periods_ms = [(starts[s + 1] - starts[s]) * 1e3 for s in range(pretraining_steps + 1, 6)]
+    loop_step_ms = statistics.median(periods_ms)
+    kernels = sorted(((e.key, e.device_time_total / 2 / 1e3, e.count / 2)
+                      for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda k: -k[1])
+    busy_ms = sum(k[1] for k in kernels) if kernels else None
+    emit(phase="loop_time", dtype="bf16", batch=LOOP_BATCH, frames=LOOP_FRAMES,
+         loop_step_ms=loop_step_ms, loop_step_periods_ms=periods_ms,
+         loop_steps_per_sec=1e3 / loop_step_ms,
+         bare_train_step_ms_device_batch=bare_ms["device_batch"],
+         bare_train_step_ms_host_batch=bare_ms["host_batch"],
+         host_copy_ms=bare_ms["host_batch"] - bare_ms["device_batch"],
+         loader_and_logging_ms=loop_step_ms - bare_ms["host_batch"],
+         loop_peak_memory_gib=loop_peak_gib, train_step_peak_memory_gib=step_peak_gib,
+         profiled_step_wall_ms=profiled_ms, step_device_busy_ms=busy_ms,
+         device_idle_share=None if busy_ms is None else 1 - busy_ms / loop_step_ms,
+         kernels_per_step=sum(k[2] for k in kernels))
+    emit(phase="loop_step_breakdown", **breakdown(kernels, 25))
+    emit(phase="train_loop", launches=launches)
+    return launches
+
+
 def kernel_group(name: str) -> str:
     return next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)), "other")
 
@@ -807,6 +1233,7 @@ def main() -> None:
     route_parity(obs, actions)
 
     sums = time_kernels(gen)
+    time_loop_kernels(gen)
     time_route(model, obs, actions)
     del model
 
@@ -818,10 +1245,15 @@ def main() -> None:
     train_parity()
     sums["convlstm_gates_bwd"] = time_gate_kernels_in_training(gen)
     time_train(trainer, batch)
+    del trainer, batch
+
+    with tempfile.TemporaryDirectory() as root:
+        loop_launches = train_loop(root)
 
     kernels = [dict(name=name, route="cuda",
                     source=f"playablevideogeneration_tpu_torch/ops/cuda/csrc/{source}.cu",
-                    replaces=replaces, launches=play_launches[name] + train_launches[name],
+                    replaces=replaces,
+                    launches=play_launches[name] + train_launches[name] + loop_launches[name],
                     max_abs_err=errors[name], ms=sums[name]["ms"],
                     cold_ms=sums[name]["cold_ms"],
                     plain_ms=sums[name]["plain_ms"], bound_ms=sums[name]["bound_ms"],

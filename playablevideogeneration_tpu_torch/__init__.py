@@ -6,7 +6,11 @@ the two against each other on the same weights and inputs.  This package
 imports neither JAX nor the JAX package.
 
 The port so far covers the interactive play route of the model
-(``models.caddy.Caddy.play_step`` and ``inference.play_session``) with two
-hand-written CUDA kernels for ``sm_90a`` under ``ops/cuda``: the ConvLSTM
-gate update and the frozen-BatchNorm + LeakyReLU epilogue.
+(``models.caddy.Caddy.play_step`` and ``inference.play_session``) and
+training: the training step (``training.trainer.Trainer.train_step``) and
+the train CLI (``cli.train``) with its configuration, data pipeline, epoch
+loop, checkpoints and in-training evaluation.  Three hand-written CUDA
+kernels for ``sm_90a`` under ``ops/cuda`` carry them: the ConvLSTM gate
+update, forward and backward, and the frozen-BatchNorm + LeakyReLU
+epilogue.
 """

@@ -1,0 +1,147 @@
+"""Training entry point.
+
+Counterpart of ``playablevideogeneration_tpu/cli/train.py``.  Trains on
+the GPU by default; ``--device cpu`` runs on the CPU when asked, and
+without a GPU the default raises instead of moving to the CPU:
+
+    python -m playablevideogeneration_tpu_torch.cli.train --config configs/01_bair.yaml
+
+A run resumes from its ``latest`` checkpoint when there is one, saves
+``latest`` after every epoch and ``checkpoint_<step>`` every ``save_freq``
+steps, and evaluates on the validation split every ``eval_freq`` steps:
+with the Gumbel sampler, and when the data carries ground-truth actions
+also with the one-hot sampler and the ground-truth sampler through the
+Hungarian mapping.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Mapping, Optional
+
+import torch
+
+from playablevideogeneration_tpu_torch.config import registry
+from playablevideogeneration_tpu_torch.config.configuration import Configuration
+from playablevideogeneration_tpu_torch.data.splitter import generate_splits
+from playablevideogeneration_tpu_torch.data.transforms import get_final_transforms
+from playablevideogeneration_tpu_torch.data.video_dataset import VideoDataset
+from playablevideogeneration_tpu_torch.evaluation.action_sampler import (
+    make_ground_truth_action_sampler,
+    one_hot_action_sampler,
+)
+from playablevideogeneration_tpu_torch.models.vgg import make_vgg
+from playablevideogeneration_tpu_torch.utils import checkpoint as ckpt_lib
+from playablevideogeneration_tpu_torch.utils.device import DeviceLike, resolve_device
+from playablevideogeneration_tpu_torch.utils.logging import Logger
+
+
+def build_run(config_dict: dict, use_wandb: bool = False, logger: Optional[Logger] = None,
+              device: DeviceLike = "cuda",
+              datasets: Optional[Mapping[str, VideoDataset]] = None):
+    """(model, datasets, trainer, evaluators, logger) for a checked config.
+
+    :param logger: a custom logger in place of the config's
+    :param datasets: ``{"train", "validation", "test"}`` datasets in place
+        of the ones the config's data root holds (videos held in memory,
+        for example)
+    """
+    registry._register_defaults()
+    if logger is None:
+        logger = Logger(config_dict, use_wandb=use_wandb)
+    device = resolve_device(device)
+    seed = config_dict.get("seed", 0)
+
+    model = registry.resolve("model", config_dict["model"]["architecture"])(
+        config_dict, device, seed)
+    if datasets is None:
+        transforms = get_final_transforms(config_dict)
+        datasets = {name: VideoDataset(path, batching, transforms[name], allowed_videos=allowed)
+                    for name, (path, batching, allowed) in generate_splits(config_dict).items()}
+    datasets = dict(datasets)
+
+    trainer = registry.resolve("trainer", config_dict["training"]["trainer"])(
+        config_dict, model, datasets["train"], logger, seed=seed)
+    make_evaluator = registry.resolve("evaluator", config_dict["evaluation"]["evaluator"])
+    # The evaluators' VGG computes in f32 whatever the model's dtype; the
+    # test evaluator is built for callers that evaluate the test split
+    # themselves, training drives only the validation one.
+    vgg = make_vgg(device, torch.float32, seed)
+    evaluators = {name: make_evaluator(config_dict, model, datasets[name], logger,
+                                       action_sampler=None, logger_prefix=name, vgg=vgg)
+                  for name in ("validation", "test")}
+    return model, datasets, trainer, evaluators, logger
+
+
+def train(config_dict: dict, use_wandb: bool = False, max_steps: Optional[int] = None,
+          device: DeviceLike = "cuda", *,
+          datasets: Optional[Mapping[str, VideoDataset]] = None):
+    """Trains until ``max_steps`` (default: the config's), resuming from the
+    ``latest`` checkpoint when there is one; returns the trainer.
+    ``datasets`` is passed to ``build_run``."""
+    model, datasets, trainer, evaluators, logger = build_run(
+        config_dict, use_wandb, device=device, datasets=datasets)
+
+    latest = os.path.join(config_dict["logging"]["save_root_directory"], "latest")
+    trainer.init_state()
+    if ckpt_lib.checkpoint_exists(latest):
+        logger.print(f"- Resuming from checkpoint '{latest}'")
+        trainer.load_checkpoint()
+    else:
+        logger.print("- No checkpoint found, starting from scratch")
+
+    if max_steps is None:
+        max_steps = config_dict["training"]["max_steps"]
+    save_freq = config_dict["training"]["save_freq"]
+    eval_freq = config_dict["evaluation"]["eval_freq"]
+    last_eval = trainer.global_step
+    last_periodic_save = trainer.global_step
+
+    while trainer.global_step < max_steps:
+        step_before = trainer.global_step
+        trainer.train_epoch(max_steps=max_steps)
+        if trainer.global_step == step_before:
+            # No full batch this epoch: without this the loop would spin,
+            # writing a checkpoint per turn.
+            raise RuntimeError(
+                "train_epoch performed no steps: the train split yields "
+                "no full batch at the current sequence length/batch size")
+        # The step an epoch ends on for a length change counts, untaken.
+        trainer.state.step = trainer.global_step
+        trainer.save_checkpoint()
+        if trainer.global_step - last_periodic_save >= save_freq:
+            trainer.save_checkpoint(f"checkpoint_{trainer.global_step}")
+            last_periodic_save = trainer.global_step
+
+        if eval_freq and trainer.global_step - last_eval >= eval_freq:
+            last_eval = trainer.global_step
+            validation = evaluators["validation"]
+            validation.set_action_sampler(None)
+            validation.evaluate(trainer.global_step)
+            if config_dict["data"]["ground_truth_available"]:
+                validation.set_action_sampler(one_hot_action_sampler, label="one_hot")
+                validation.evaluate(trainer.global_step, save_images=False)
+                mapping = validation.get_best_action_mappings()
+                validation.set_action_sampler(make_ground_truth_action_sampler(mapping),
+                                              label="gt_actions")
+                validation.evaluate(trainer.global_step, save_images=False)
+    logger.print("- Training complete")
+    return trainer
+
+
+def main():
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--config", type=str, required=True)
+    parser.add_argument("--wandb", action="store_true")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device to train on (default: cuda)")
+    args = parser.parse_args()
+
+    configuration = Configuration(args.config)
+    configuration.check_config()
+    configuration.create_directory_structure()
+    train(configuration.get_config(), use_wandb=args.wandb, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -234,3 +234,25 @@ def motion_weight_mask(observations: torch.Tensor, reconstructed_observations: t
             + torch.abs(rec[:, 1:] - rec[:, :-1]))
     mask = mask.sum(dim=2, keepdim=True) + weight_bias
     return torch.cat([torch.ones_like(mask[:, 0:1]), mask], dim=1)
+
+
+def sequence_loss(loss_fn: Callable, ground_truth_sequence: torch.Tensor,
+                  reconstructed_sequence: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``loss_fn`` at each position of a sequence, a length T-1
+    reconstruction right-aligned against the length T ground truth; a
+    ``loss_fn`` that returns a tuple gives its first element.
+
+    :return: (mean over the reconstructed positions, (T,) per-position
+        losses, position 0 zero when the reconstruction is one shorter)
+    """
+    t_gt, t_rec = ground_truth_sequence.shape[1], reconstructed_sequence.shape[1]
+    offset = t_gt - t_rec
+    if offset not in (0, 1):
+        raise ValueError(f"Sequence lengths {t_gt} vs {t_rec} are incompatible")
+    terms = [torch.zeros((), device=reconstructed_sequence.device)] * offset
+    for i in range(t_rec):
+        value = loss_fn(ground_truth_sequence[:, i + offset:i + offset + 1],
+                        reconstructed_sequence[:, i:i + 1])
+        terms.append(value[0] if isinstance(value, tuple) else value)
+    terms = torch.stack([t.float() for t in terms])
+    return terms[offset:].mean(), terms

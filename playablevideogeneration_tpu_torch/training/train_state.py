@@ -28,3 +28,13 @@ class TrainState:
         return dict(model=self.model.state_dict(), optimizer=self.optimizer.state_dict(),
                     scheduler=self.scheduler.state_dict(), mi_matrix=self.mi_matrix,
                     step=self.step)
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restores what ``state_dict`` saved, in place: the parameters and
+        buffers (BatchNorm statistics, centroids), Adam's moments and step
+        counts, the schedule, the MI matrix and the step."""
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.scheduler.load_state_dict(state["scheduler"])
+        self.mi_matrix = state["mi_matrix"].to(self.mi_matrix.device)
+        self.step = int(state["step"])

@@ -46,6 +46,13 @@ def resize_bilinear(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
     return out.reshape(tuple(lead) + tuple(out.shape[1:]))
 
 
+def sequence_to_nchw(observations, device) -> torch.Tensor:
+    """The loader's channels-last (B, T, H, W, C) frames, numpy or tensor,
+    as a contiguous f32 (B, T, C, H, W) tensor on ``device``."""
+    x = torch.as_tensor(observations, device=device)
+    return x.float().permute(0, 1, 4, 2, 3).contiguous()
+
+
 def time_major(x: torch.Tensor) -> torch.Tensor:
     """(B, T, ...) -> (T, B, ...)."""
     return x.transpose(0, 1)

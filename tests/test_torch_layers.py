@@ -10,7 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import nchw, nhwc, random_variables
+from torch_parity import (  # noqa: F401 (single_threaded_torch is an autouse fixture)
+    nchw, nhwc, random_variables, single_threaded_torch)
 
 from playablevideogeneration_tpu.models import layers as jl
 from playablevideogeneration_tpu_torch.models import layers as tl

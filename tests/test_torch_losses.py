@@ -10,7 +10,8 @@ import numpy as np
 import optax
 import pytest
 import torch
-from torch_parity import random_variables
+from torch_parity import (  # noqa: F401 (single_threaded_torch is an autouse fixture)
+    random_variables, single_threaded_torch)
 
 from playablevideogeneration_tpu.models import vgg as jax_vgg
 from playablevideogeneration_tpu.training import losses as jax_losses

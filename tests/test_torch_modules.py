@@ -9,7 +9,8 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
-from torch_parity import nchw, nhwc, random_variables
+from torch_parity import (  # noqa: F401 (single_threaded_torch is an autouse fixture)
+    nchw, nhwc, random_variables, single_threaded_torch)
 
 from playablevideogeneration_tpu.data.synthetic import make_synthetic_config
 from playablevideogeneration_tpu.models import action as jax_action

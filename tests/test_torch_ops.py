@@ -11,7 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import nchw, nhwc
+from torch_parity import (  # noqa: F401 (single_threaded_torch is an autouse fixture)
+    nchw, nhwc, single_threaded_torch)
 
 from playablevideogeneration_tpu.ops.pallas import convlstm_gates as jax_gates
 from playablevideogeneration_tpu.ops.pallas import fused_norm_act as jax_norm_act

@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 import yaml
-from torch_parity import random_variables
+from torch_parity import (  # noqa: F401 (single_threaded_torch is an autouse fixture)
+    random_variables, single_threaded_torch)
 
 from playablevideogeneration_tpu.inference.play_session import PlaySession as JaxPlaySession
 from playablevideogeneration_tpu.models.caddy import Caddy as JaxCaddy

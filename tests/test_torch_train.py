@@ -19,27 +19,27 @@ gradients are that ill-conditioned: perturbing the weights by 1e-6
 relative moves the port's own pretraining gradients by 1.3e-3 of a leaf's
 largest magnitude, and the two frameworks differ by up to 1e-3.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import random_variables
+from torch_parity import (  # noqa: F401 (single_threaded_torch is an autouse fixture)
+    NOISE, patched_noise, random_variables, single_threaded_torch, to_port_layout)
 
 from playablevideogeneration_tpu.config.configuration import Configuration
 from playablevideogeneration_tpu.data.synthetic import make_synthetic_config
-from playablevideogeneration_tpu.models import action as jax_action
-from playablevideogeneration_tpu.models import caddy as jax_caddy
 from playablevideogeneration_tpu.models import vgg as jax_vgg
 from playablevideogeneration_tpu.training import losses as jax_losses
 from playablevideogeneration_tpu.training import trainer as jax_trainer
 from playablevideogeneration_tpu.training.bench_harness import NullDataset
 from playablevideogeneration_tpu.training.train_state import TrainState as JaxTrainState
 from playablevideogeneration_tpu.utils.logging import Logger
-from playablevideogeneration_tpu_torch.models import action as port_action
-from playablevideogeneration_tpu_torch.models import caddy as port_caddy
+from playablevideogeneration_tpu_torch.data.transforms import get_final_transforms
+from playablevideogeneration_tpu_torch.data.video_dataset import VideoDataset
 from playablevideogeneration_tpu_torch.models.caddy import Caddy
-from playablevideogeneration_tpu_torch.models.gumbel import gumbel_softmax
 from playablevideogeneration_tpu_torch.models.vgg import Vgg19
 from playablevideogeneration_tpu_torch.training import losses
 from playablevideogeneration_tpu_torch.training.trainer import Trainer, compute_loss_terms
@@ -64,62 +64,9 @@ MI_ALPHA = 0.2
 # Gradients' atol as a share of each leaf's largest magnitude, by phase
 # (pretraining: see the module docstring).
 GRAD_ATOL = {False: 1e-4, True: 3e-3}
-# ModelOutput fields that hold images, NHWC in JAX and NCHW in the port.
-IMAGE_FIELDS = {"reconstructed_observations", "multiresolution_reconstructed_observations",
-                "reconstructed_states", "states", "hidden_states", "attention",
-                "reconstructed_attention", "reconstructed_hidden_states"}
-
-
-class Noise:
-    """Numpy noise in call order: the k-th draw since ``reset`` is the same
-    in both packages."""
-
-    def __init__(self):
-        self.calls = 0
-
-    def reset(self):
-        self.calls = 0
-
-    def draw(self, shape, kind):
-        rng = np.random.default_rng(1000 + self.calls)
-        self.calls += 1
-        if kind == "normal":
-            return rng.normal(size=shape).astype(np.float32)
-        return rng.gumbel(size=shape).astype(np.float32)
-
-
-NOISE = Noise()
-
-
-def _jax_reparameterized(key, mean, variance):
-    return jnp.asarray(NOISE.draw(mean.shape, "normal"), mean.dtype) * jnp.sqrt(variance) + mean
-
-
-def _jax_gumbel(key, log_probs, temperature, hard=False):
-    g = jnp.asarray(NOISE.draw(log_probs.shape, "gumbel"), log_probs.dtype)
-    soft = jax.nn.softmax((log_probs + g) / temperature, axis=-1)
-    if hard:
-        y_hard = jax.nn.one_hot(jnp.argmax(soft, axis=-1), soft.shape[-1], dtype=soft.dtype)
-        return soft + jax.lax.stop_gradient(y_hard - soft)
-    return soft
-
-
-def _port_reparameterized(generator, mean, variance):
-    return torch.from_numpy(NOISE.draw(tuple(mean.shape), "normal")) * torch.sqrt(variance) + mean
-
-
-def _port_gumbel(generator, log_probs, temperature, hard=False):
-    noise = torch.from_numpy(NOISE.draw(tuple(log_probs.shape), "gumbel"))
-    return gumbel_softmax(log_probs, noise, temperature, hard)
-
-
 @pytest.fixture(scope="module", autouse=True)
 def shared_noise():
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_action, "reparameterized_sample", _jax_reparameterized)
-        mp.setattr(jax_caddy, "gumbel_softmax_sample", _jax_gumbel)
-        mp.setattr(port_action, "reparameterized_sample", _port_reparameterized)
-        mp.setattr(port_caddy, "gumbel_softmax_sample", _port_gumbel)
+    with patched_noise():
         yield
 
 
@@ -151,11 +98,6 @@ def _port_vgg(vgg_variables):
 
 def _nchw_sequence(x):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(x).transpose(0, 1, 4, 2, 3)))
-
-
-def _to_port_layout(name, value):
-    value = np.asarray(value)
-    return value.transpose(0, 1, 4, 2, 3) if name in IMAGE_FIELDS else value
 
 
 class _Capture:
@@ -242,7 +184,7 @@ def test_forward_outputs_match_jax(jax_runs, port_runs, pretraining):
                              else ([value], [expected]))
         assert len(values) == len(expecteds), name
         for v, e in zip(values, expecteds):
-            np.testing.assert_allclose(v.detach().numpy(), _to_port_layout(name, e),
+            np.testing.assert_allclose(v.detach().numpy(), to_port_layout(name, e),
                                        err_msg=name, **TOL)
 
 
@@ -303,21 +245,33 @@ def _train_config():
     return config
 
 
+def _initial_jax_state(jax_tr, variables):
+    return JaxTrainState(params=variables["params"],
+                         opt_state=jax_tr.tx.init(variables["params"]),
+                         batch_stats=variables["batch_stats"],
+                         model_state=variables["model_state"],
+                         mi_matrix=jax_losses.init_mi_matrix(3), step=jnp.zeros((), jnp.int32))
+
+
 @pytest.fixture(scope="module")
-def train_runs(tiny_model, weights, batch):
+def jax_train_steps(tiny_model, weights):
+    """The JAX trainer (smooth MI) and its jitted train step per phase,
+    each traced on its first call."""
+    jax_tr = jax_trainer.Trainer(_train_config(), tiny_model, NullDataset(), Logger(),
+                                 smooth_mi=True, vgg_variables=weights[1])
+    return jax_tr, {phase: jax_tr._make_train_step(phase) for phase in (False, True)}
+
+
+@pytest.fixture(scope="module")
+def train_runs(tiny_model, weights, batch, jax_train_steps):
     """Three full-phase steps of both trainers (smooth MI) from the same
     state; returns per step the JAX state and metrics and the port's
     metrics, and the port trainer after the first step's state."""
     variables, vgg_variables = weights
     config = _train_config()
-    jax_tr = jax_trainer.Trainer(config, tiny_model, NullDataset(), Logger(), smooth_mi=True,
-                                 vgg_variables=vgg_variables)
-    step = jax_tr._make_train_step(False)
-    state = JaxTrainState(params=variables["params"],
-                          opt_state=jax_tr.tx.init(variables["params"]),
-                          batch_stats=variables["batch_stats"],
-                          model_state=variables["model_state"],
-                          mi_matrix=jax_losses.init_mi_matrix(3), step=jnp.zeros((), jnp.int32))
+    jax_tr, steps = jax_train_steps
+    step = steps[False]
+    state = _initial_jax_state(jax_tr, variables)
 
     port = Trainer(config, _port_model(tiny_model, variables, False), smooth_mi=True,
                    vgg=_port_vgg(vgg_variables))
@@ -391,3 +345,78 @@ def test_loss_trajectory_matches_jax(train_runs):
     np.testing.assert_allclose(got, want, **TOL)
     assert got[0] != got[1] != got[2]
     assert [run["port"]["ground_truth_observations"] for run in train_runs] == [3, 3, 3]
+
+
+def _jax_variables_of(model, template):
+    """The port model's parameters and buffers as a JAX variables tree
+    shaped like ``template`` (the inverse of ``load_jax_variables``)."""
+    state = model.state_dict()
+
+    def walk(collection, node, path):
+        tree = {}
+        for name, value in node.items():
+            if isinstance(value, dict):
+                tree[name] = walk(collection, value, path + (name,))
+                continue
+            key, _ = _convert(collection, path + (name,), np.asarray(value))
+            array = state[key].detach().numpy().copy()  # not a view of the live tensor
+            if name.startswith("initial_"):
+                array = array.transpose(1, 2, 0)
+            elif name == "kernel":
+                array = array.transpose(2, 3, 1, 0) if array.ndim == 4 else array.T
+            tree[name] = array
+        return tree
+
+    return {c: walk(c, template[c], ()) for c in ("params", "batch_stats", "model_state")}
+
+
+def test_training_loop_loss_trajectory_matches_jax(tiny_model, weights, jax_train_steps,
+                                                   synthetic_dataset_dir):
+    """The port's epoch loop, one pretraining and two full-phase steps over
+    its loader's batches: each step's loss against the JAX train step's on
+    the same batch, schedules, noise, weights, statistics, centroids and MI
+    matrix (the port's state before that step), rtol 1e-3.
+
+    Each JAX step starts from the port's state rather than carrying its own:
+    Adam's first update is about lr * sign(g), and pretraining's gradients
+    are ill-conditioned (module docstring), so weights 1e-6 apart drift
+    apart by up to 2 lr after the first step; on this model such a
+    perturbation of the port's own weights moves its third loss by up to
+    3.5e-3 relative."""
+    variables, vgg_variables = weights
+    jax_tr, steps = jax_train_steps
+    config = _train_config()
+    config["training"]["pretraining_steps"] = 1
+    dataset = VideoDataset(os.path.join(synthetic_dataset_dir, "train"),
+                           config["training"]["batching"], get_final_transforms(config)["train"])
+    port = Trainer(config, _port_model(tiny_model, variables, False), smooth_mi=True,
+                   vgg=_port_vgg(vgg_variables), dataset=dataset)
+    port.init_state()
+    recorded = []
+    train_step = port.train_step
+
+    def step(batch):
+        before = (_jax_variables_of(port.model, variables), port.state.mi_matrix.numpy().copy())
+        NOISE.reset()
+        metrics = train_step(batch)
+        recorded.append((batch, before, dict(metrics)))
+        return metrics
+
+    port.train_step = step
+    port.train_epoch(max_steps=3)
+    assert port.global_step == 3
+    assert [m["pretraining"] for *_, m in recorded] == [1.0, 0.0, 0.0]
+
+    got, want = [], []
+    for batch, (before, mi_matrix), metrics in recorded:
+        state = _initial_jax_state(jax_tr, before).replace(mi_matrix=jnp.asarray(mi_matrix))
+        NOISE.reset()
+        _, jax_metrics = steps[bool(metrics["pretraining"])](
+            state, jnp.asarray(batch.observations), jnp.asarray(batch.actions),
+            jnp.asarray(metrics["ground_truth_observations"], jnp.int32),
+            jnp.asarray(metrics["gumbel_temperature"], jnp.float32), jax.random.PRNGKey(0),
+            jax_tr.vgg_variables)
+        got.append(metrics["loss"])
+        want.append(float(jax_metrics["loss"]))
+    np.testing.assert_allclose(got, want, rtol=1e-3)
+    assert got[0] != got[1] != got[2]
