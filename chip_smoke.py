@@ -1,5 +1,5 @@
-"""Drives the PyTorch/CUDA port's play and training routes, and its
-training loop, on one NVIDIA Hopper GPU.
+"""Drives the PyTorch/CUDA port's play and training routes, its training
+loop and the entry points after training, on one NVIDIA Hopper GPU.
 
 Run from the repository root on a machine with an H100:
 
@@ -15,8 +15,9 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    the toolkit has ``cuobjdump``, its static SASS instruction count;
 3. kernels: holds each kernel against its plain PyTorch version on the card
    at every shape the flagship's play and training steps give it (batch 1
-   and 16), the training loop's gate shapes at batch 8 and every shape an
-   evaluation batch gives K3 (8 x 30 frames: ``EVAL_NORM_SHAPES``), plus a
+   and 16), the training loop's gate shapes at batch 8, every shape an
+   evaluation or builder batch gives K3 (8 x 30 frames: ``EVAL_NORM_SHAPES``)
+   and phase 11's f32 builder batch of 2 x 8 frames gives K1 and K3, plus a
    ragged case (3x65x25x40), a C*H*W that is no multiple of a vector
    (3x5x7x9) and inputs whose storage starts one element into its buffer,
    in f32 and bf16: each must equal its plain version bit for bit, and each
@@ -76,18 +77,40 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    period beside bare ``train_step``s (batch on the card, batch on the
    host), evaluation seconds, checkpoint size and save/load seconds, peak
    memory, and the device's idle share over two profiled loop steps.
+11. after training, on phase 10's run and its ``latest`` checkpoint, at
+   BAIR's full width in bf16: the play CLI (``cli.play.load_play_session``
+   and its scripted 64-frame rollout: 3 K1 + 15 K3 launches per frame, no
+   K2, one synchronisation, uint8 frames; frames/s), ``cli.interpolate``
+   (11 factors x 4 frames, in memory), a reference ``.pth.tar`` written
+   from the played weights and imported by ``Trainer.load_reference_weights``
+   into a model seeded otherwise (every tensor bit for bit, then a play
+   step), the evaluation-dataset builder over 2 batches of 8 x 30 test
+   sequences on a model in training mode (87 K1 + 446 K3 per batch, no K2;
+   uint8 frames and the metadata; the mode restored, and a train step
+   right after runs no K3), the offline evaluation (``cli.evaluate_dataset``
+   with configs/evaluation/01_bair.yaml's settings, ``BAIR_EVALUATION_CONFIG``,
+   on the builder's videos in memory, with random VGG19 and LPIPS weights
+   written in the converter's layout: every metric key, the markers of the
+   absent backbones, finite values; seconds per batch split into frame
+   metrics with VGG19, LPIPS and the host's share; peak memory), and last
+   f32 with TF32 off against the CPU's plain path: one builder batch of 2 x
+   8 frames within 1e-3 (the CPU following the card's inferred actions,
+   which must match its own but for ties within 1e-4 of log-probability),
+   the frame metrics of one evaluation batch within rtol 1e-4.
 
 It prints JSON lines as it goes, then the kernels' summary line (``ms``,
 ``cold_ms``, ``plain_ms`` and ``bound_ms`` there are per step of the
 kernel's route: the sum over a bf16 play step's launches for K1 and K3,
 over a bf16 training step's 33 K2 launches for K2; ``launches`` counts
-phase 4's, 7's and 10's runs), the card's nvidia-smi line, and last
-``{"ok": true, "device": {...}}``.
+phase 4's, 7's, 10's and 11's runs, without the f32 parity checks), the
+card's nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import contextlib
 import copy
+import functools
+import importlib.util
 import io
 import itertools
 import json
@@ -106,14 +129,38 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from playablevideogeneration_tpu_torch.cli.build_evaluation_dataset import (
+    make_evaluation_dataset_builder,
+)
+from playablevideogeneration_tpu_torch.cli.evaluate_dataset import evaluate_dataset
+from playablevideogeneration_tpu_torch.cli.interpolate import interpolate
+from playablevideogeneration_tpu_torch.cli.play import load_play_session, scripted_rollout
 from playablevideogeneration_tpu_torch.cli.train import build_run, train
-from playablevideogeneration_tpu_torch.config.configuration import Configuration
+from playablevideogeneration_tpu_torch.config.configuration import (
+    Configuration,
+    EvaluationConfiguration,
+)
 from playablevideogeneration_tpu_torch.data.synthetic import make_moving_square_video
-from playablevideogeneration_tpu_torch.data.transforms import get_final_transforms
-from playablevideogeneration_tpu_torch.data.video_dataset import VideoDataset
-from playablevideogeneration_tpu_torch.evaluation.evaluator import Evaluator
+from playablevideogeneration_tpu_torch.data.transforms import (
+    get_evaluation_transforms,
+    get_final_transforms,
+)
+from playablevideogeneration_tpu_torch.data.video_dataset import VideoDataset, collate
+from playablevideogeneration_tpu_torch.evaluation.builder import EvaluationDatasetBuilder
+from playablevideogeneration_tpu_torch.evaluation.dataset_evaluator import (
+    DatasetEvaluator,
+    DatasetEvaluatorBair,
+)
+from playablevideogeneration_tpu_torch.evaluation.action_sampler import (
+    zero_action_variation_sampler,
+)
+from playablevideogeneration_tpu_torch.evaluation.evaluator import Evaluator, evaluation_forward
+from playablevideogeneration_tpu_torch.evaluation.metrics.lpips import (
+    load_lpips_linear_weights,
+    make_lpips_fn,
+)
 from playablevideogeneration_tpu_torch.inference.play_session import PlaySession
-from playablevideogeneration_tpu_torch.models.caddy import flagship_model
+from playablevideogeneration_tpu_torch.models.caddy import flagship_model, make_model
 from playablevideogeneration_tpu_torch.models.layers import BatchNorm
 from playablevideogeneration_tpu_torch.ops.cuda import build
 from playablevideogeneration_tpu_torch.ops.cuda.convlstm_gates import (
@@ -134,6 +181,12 @@ from playablevideogeneration_tpu_torch.ops.cuda.fused_norm_act import (
 )
 from playablevideogeneration_tpu_torch.training.trainer import Trainer
 from playablevideogeneration_tpu_torch.utils.checkpoint import STATE_FILE
+from playablevideogeneration_tpu_torch.utils.logging import Logger
+from playablevideogeneration_tpu_torch.utils.pretrained import (
+    load_variables_npz,
+    make_metric_vgg,
+    save_variables_npz,
+)
 
 SEED = 0
 # configs/01_bair.yaml as a dict, since the card's machine has no PyYAML;
@@ -272,11 +325,41 @@ def eval_norm_shapes(batch: int, frames: int) -> list:
 
 EVAL_NORM_SHAPES = eval_norm_shapes(LOOP_BATCH, EVAL_FRAMES)
 EVAL_GATE_LAUNCHES = 3 * EVAL_DYNAMICS_STEPS
+# Phase 11's f32 card-vs-CPU check: one builder batch of 2 sequences of 8
+# frames (its K1 and K3 shapes are held bit for bit in phase 3).
+PARITY_BATCH, PARITY_FRAMES = 2, 8
+PARITY_NORM_SHAPES = eval_norm_shapes(PARITY_BATCH, PARITY_FRAMES)
+GATE_PARITY_SHAPES = [(PARITY_BATCH,) + s[1:] for s in GATE_SHAPES]
 # The synthetic videos: 32 frames at 256x256; 2 train videos give 52 samples
 # at 7 frames (6 batches of 8), 6 validation videos 18 at 30 frames (2).
 LOOP_VIDEO_FRAMES = 32
 LOOP_VIDEOS = {"train": 2, "validation": 6, "test": 1}
 LOOP_TIMED_STEPS = 8
+# Phase 11, after training, on phase 10's run: a 64-frame scripted rollout
+# of the play CLI, 11 interpolation factors x 4 frames, and the evaluation
+# dataset of 2 builder batches of 8 test sequences of 30 frames (8 videos
+# of 31 frames), evaluated at BAIR's evaluation batch of 1 x 30.
+AFTER_ROLLOUT_FRAMES = 64
+INTERPOLATION_FACTORS, INTERPOLATION_FRAMES = 11, 4
+BUILDER_BATCHES = 2
+TEST_VIDEOS, TEST_VIDEO_FRAMES = 8, EVAL_FRAMES + 1
+# The reference checkpoint's per-gate ConvLSTM convolutions, in the order
+# the port's fused gate convolution stacks them.
+REFERENCE_GATES = ("input_gate", "forget_gate", "output_gate", "cell_gate")
+LPIPS_CHANNELS = (64, 128, 256, 512, 512)
+# configs/evaluation/01_bair.yaml as a dict, since the card's machine has no
+# PyYAML; tests/test_torch_offline_eval.py pins it to the file.
+BAIR_EVALUATION_CONFIG = {
+    "logging": {"run_name": "01_bair", "comments": "", "output_root": "evaluation_results"},
+    "data": {"target_input_size": [256, 256], "actions_count": 7,
+             "ground_truth_available": False},
+    "reference_data": {"data_root": "data/bair_256_ours/test", "crop": [0, 0, 256, 256]},
+    "generated_data": {"data_root": "results/01_bair/evaluation_dataset",
+                       "crop": [0, 0, 256, 256]},
+    "evaluation": {"evaluator": "evaluation.dataset_evaluator_bair",
+                   "batching": {"batch_size": 1, "observations_count": 30, "skip_frames": 0,
+                                "observation_stacking": 1, "num_workers": 8}},
+}
 # Cold timings rotate over distinct inputs totalling at least this much,
 # three times the 50 MB L2, so that each launch finds its inputs in HBM.
 COLD_BYTES = 150e6
@@ -434,11 +517,12 @@ def check_kernels(gen) -> dict:
         cases = [("convlstm_gates", s, o, gate_inputs(s, dtype, gen, o), fused_lstm_gates,
                   _gate_math)
                  for s, o in [(s, 0) for s in unique(GATE_SHAPES + GATE_TRAIN_SHAPES
-                                                     + GATE_LOOP_SHAPES)]
+                                                     + GATE_LOOP_SHAPES + GATE_PARITY_SHAPES)]
                  + [(GATE_RAGGED_SHAPE, 0), (UNVECTORED_SHAPE, 0), (GATE_SHAPES[0], 1)]]
         cases += [("fused_norm_act", s, o, norm_inputs(s, dtype, gen, o),
                    fused_batch_norm_leaky_relu, _batch_norm_leaky_relu)
-                  for s, o in [(s, 0) for s in unique(NORM_SHAPES + EVAL_NORM_SHAPES)]
+                  for s, o in [(s, 0) for s in unique(NORM_SHAPES + EVAL_NORM_SHAPES
+                                                      + PARITY_NORM_SHAPES)]
                   + [(UNVECTORED_SHAPE, 0), (NORM_SHAPES[2], 1)]]
         widths = {name: set() for name in errors}
         for name, shape, offset, args, kernel, plain in cases:
@@ -497,6 +581,22 @@ def check_frame(frame: np.ndarray, shape) -> None:
     require(frame.min() >= -1.0 and frame.max() <= 1.0, (frame.min(), frame.max()))
 
 
+@contextlib.contextmanager
+def counted_syncs():
+    """Yields a list that receives, when the block ends, the message of
+    every synchronising CUDA operation the block ran."""
+    syncs = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield syncs
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs.extend(str(w.message) for w in caught
+                 if "called a synchronizing CUDA operation" in str(w.message))
+
+
 def play_route(model, obs: np.ndarray, actions: np.ndarray) -> dict:
     """Phase 4 on the bf16 flagship; returns the launch counts."""
     session = PlaySession(model)
@@ -505,15 +605,8 @@ def play_route(model, obs: np.ndarray, actions: np.ndarray) -> dict:
     frames = [session.generate_next(int(a)) for a in actions[:3]]
     u8 = session.generate_next_u8(int(actions[3]))
     frames.append(session.generate_next_interpolation(0, 3, 0.7))
-    with warnings.catch_warnings(record=True) as syncs:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            rollout = session.rollout(actions[:ROLLOUT_FRAMES])
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    syncs = [str(w.message) for w in syncs
-             if "called a synchronizing CUDA operation" in str(w.message)]
+    with counted_syncs() as syncs:
+        rollout = session.rollout(actions[:ROLLOUT_FRAMES])
     launches = read_launches()
     steps = 3 + 1 + 1 + ROLLOUT_FRAMES
     require(launches == {"convlstm_gates": 3 * steps, "convlstm_gates_bwd": 0,
@@ -1121,6 +1214,483 @@ def train_loop(root: str) -> dict:
     return launches
 
 
+def per_frame_launches(frames: int) -> dict:
+    """A play step's launches, ``frames`` times: K1 3 and K3 15, K2 none."""
+    return {"convlstm_gates": 3 * frames, "convlstm_gates_bwd": 0,
+            "fused_norm_act": 15 * frames}
+
+
+def add_launches(totals: dict, launches: dict) -> None:
+    for name, count in launches.items():
+        totals[name] += count
+
+
+def reference_key(key: str) -> str:
+    """The reference checkpoint's name of a port state key (other than the
+    fused gate convolution's), whose module path carries the Flax names."""
+    if key == "centroids":
+        return "centroid_estimator.estimated_centroids"
+    parts = key.split(".")
+    top, rest, leaf = parts[0], parts[1:-1], parts[-1]
+
+    def block(inner):  # a residual block's layers
+        names = {"shortcut_conv": ["downsample", "0"], "shortcut_bn": ["downsample", "2"]}
+        return names.get(inner[0], inner[:1]) + inner[1:]
+
+    def residuals(head):
+        if rest[0].startswith("res"):
+            return head + ["residuals", rest[0][3:]] + block(rest[1:])
+        return head + rest
+
+    if top == "state_to_hidden":
+        path = ["state_to_hidden_state_layer", "0"]
+    elif top == "representation_network":
+        path = residuals([top])
+    elif top.startswith("action_network_"):
+        path = residuals(["action_network", top[len("action_network_"):]])
+    elif top == "dynamics_network" and rest[0].startswith("lstm"):  # the initial states
+        path = [top, "recurrent_layers_blocks", rest[0][4:], "0"]
+        leaf = {"initial_hidden_state": "initial_hidden_state",
+                "initial_cell_state": "initial_hidden_cell_state"}[leaf]
+    elif top == "dynamics_network" and rest[0].startswith("bn"):
+        path = [top, "recurrent_layers_blocks", rest[0][2:], "1"]
+    elif top == "dynamics_network":
+        path = ([top, "non_recurrent_blocks", {"same0": "0", "up0": "1", "same1": "2"}[rest[0]]]
+                + block(rest[1:]))
+    elif top == "rendering_network" and rest[0].startswith("final"):
+        path = [top, "final_blocks", rest[0][len("final"):]]  # the 'conv' level dropped
+    elif top == "rendering_network" and rest[0] == "up2":
+        path = [top, "upsample_blocks", "2"] + rest[1:]
+    elif top == "rendering_network":
+        path = ([top, "upsample_blocks", rest[0][-1], "0" if rest[0].startswith("up") else "1"]
+                + block(rest[1:]))
+    else:
+        raise KeyError(key)
+    return ".".join(path + [leaf])
+
+
+def reference_state_dict(model) -> dict:
+    """The model's weights as the reference's state_dict, on the CPU:
+    per-gate ConvLSTM convolutions in i, f, o, g order, a
+    ``num_batches_tracked`` per BatchNorm, the reference's names; kernels,
+    linears and initial states are already in its layouts."""
+    state = {}
+    for key, value in model.state_dict().items():
+        value = value.detach().cpu().clone()
+        if ".cell.gates." in key:
+            layer, leaf = key.split(".")[1][len("lstm"):], key.rsplit(".", 1)[1]
+            for gate, part in zip(REFERENCE_GATES, value.chunk(4, dim=0)):
+                state[f"dynamics_network.recurrent_layers_blocks.{layer}.0.cell.{gate}.{leaf}"] = (
+                    part.clone())
+            continue
+        state[reference_key(key)] = value
+        if key.endswith("running_mean"):
+            state[reference_key(key).replace("running_mean", "num_batches_tracked")] = (
+                torch.tensor(0))
+    return state
+
+
+def write_reference_checkpoint(model, path: str) -> None:
+    """Saves the model's weights as a reference ``.pth.tar``, ``{"model":
+    state_dict}``, as the reference's trainer saves them."""
+    torch.save({"model": reference_state_dict(model)}, path)
+
+
+def test_split_videos(config: dict) -> list:
+    """Phase 11's test split: TEST_VIDEOS synthetic videos of
+    TEST_VIDEO_FRAMES at the config's size, seeded apart from phase 10's."""
+    width, height = config["model"]["representation_network"]["target_input_size"]
+    return [make_moving_square_video(TEST_VIDEO_FRAMES, height, width, square=height // 8,
+                                     actions_count=config["data"]["actions_count"],
+                                     seed=SEED + 100 + i, step_pixels=height // 20)
+            for i in range(TEST_VIDEOS)]
+
+
+def write_metric_weights(directory: str) -> None:
+    """Random, seeded ``vgg19.npz`` and ``lpips_lin.npz`` in the layout that
+    ``tools/convert_weights.py`` writes (flax names and HWIO kernels; one
+    (C,) head per level), so that the pretrained VGG19 and LPIPS run."""
+    vgg = make_metric_vgg(None, "cpu")
+    params = {}
+    for name, conv in vgg.named_children():
+        params[name] = {"kernel": conv.weight.detach().permute(2, 3, 1, 0).numpy(),
+                        "bias": conv.bias.detach().numpy()}
+    save_variables_npz({"params": params}, os.path.join(directory, "vgg19.npz"))
+    rng = np.random.default_rng(SEED)
+    np.savez(os.path.join(directory, "lpips_lin.npz"),
+             **{f"lin{i}": rng.uniform(0, 1, c).astype(np.float32)
+                for i, c in enumerate(LPIPS_CHANNELS)})
+
+
+def evaluation_config(root: str) -> dict:
+    """BAIR's evaluation config with its outputs under ``root`` and the
+    metric weights in ``root/weights``, checked."""
+    config = copy.deepcopy(BAIR_EVALUATION_CONFIG)
+    config["logging"]["output_root"] = os.path.join(root, "evaluation_results")
+    config["tpu"] = {"pretrained_weights_dir": os.path.join(root, "weights")}
+    EvaluationConfiguration(config=config).check_config(check_data_root=False)
+    return config
+
+
+class EvaluationRecorder:
+    """Within the block, each dataset evaluator's frame-metric batches (the
+    five metrics with VGG19, and LPIPS), LPIPS alone (synchronised around
+    it) and the whole ``compute_metrics`` are timed."""
+
+    def __enter__(self):
+        self.frame_s, self.lpips_s, self.total_s = [], [], []
+        self._saved = DatasetEvaluator._compute_frame_metrics, DatasetEvaluator.compute_metrics
+        frame_metrics, compute_metrics = self._saved
+        recorder = self
+
+        def timed_lpips(lpips_fn):
+            def fn(reference, generated):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                out = lpips_fn(reference, generated)
+                torch.cuda.synchronize()
+                recorder.lpips_s.append(time.perf_counter() - start)
+                return out
+            return fn
+
+        def recorded_frame_metrics(evaluator, reference, generated):
+            if evaluator.lpips_fn is not None and not hasattr(evaluator, "_timed"):
+                evaluator.lpips_fn, evaluator._timed = timed_lpips(evaluator.lpips_fn), True
+            start = time.perf_counter()
+            out = frame_metrics(evaluator, reference, generated)  # ends in a readback
+            recorder.frame_s.append(time.perf_counter() - start)
+            return out
+
+        def recorded_compute_metrics(evaluator):
+            start = time.perf_counter()
+            out = compute_metrics(evaluator)
+            recorder.total_s.append(time.perf_counter() - start)
+            return out
+
+        DatasetEvaluator._compute_frame_metrics = recorded_frame_metrics
+        DatasetEvaluator.compute_metrics = recorded_compute_metrics
+        return self
+
+    def __exit__(self, *exc_info):
+        DatasetEvaluator._compute_frame_metrics, DatasetEvaluator.compute_metrics = self._saved
+
+
+def check_evaluation_dataset(videos: list, frames: int, frame_shape: tuple) -> None:
+    """The builder's videos: uint8 frames of ``frame_shape``, per frame the
+    metadata ``{model, inferred_action, encoded_action}``, ``{model}`` on
+    the last."""
+    for video in videos:
+        require(video.get_frames_count() == frames, video.get_frames_count())
+        for i in range(frames):
+            frame = video.get_frame_at(i)
+            require(frame.dtype == np.uint8 and frame.shape == frame_shape,
+                    (frame.dtype, frame.shape))
+        for meta in video.metadata[:-1]:
+            require(sorted(meta) == ["encoded_action", "inferred_action", "model"], meta)
+            require(meta["model"] == "ours" and 0 <= meta["inferred_action"] < 7
+                    and len(meta["encoded_action"]) == 2
+                    and all(math.isfinite(v) for v in meta["encoded_action"]), meta)
+        require(video.metadata[-1] == {"model": "ours"}, video.metadata[-1])
+
+
+def check_offline_metrics(metrics: dict, frames: int) -> None:
+    """Every expected key of BAIR's offline evaluation, the markers of the
+    backbones that are not there, and finite numbers, but for the kurtosis
+    of a movement component that does not vary within an action, which is
+    undefined (NaN in both packages)."""
+    for prefix in ("mse", "motion_masked_mse", "psnr", "ssim", "vgg_sim", "lpips"):
+        for suffix in ["avg", "var"] + [str(i) for i in range(frames)]:
+            require(f"{prefix}/{suffix}" in metrics, f"no {prefix}/{suffix}")
+    markers = ["fid_unavailable", "fvd_unavailable", "detection_unavailable"]
+    if importlib.util.find_spec("sklearn") is None:
+        markers.append("action_classification_unavailable")
+    else:
+        require("action_classification/linear/accuracy" in metrics, "no SVM accuracy")
+    for marker in markers:
+        require(marker in metrics, f"no {marker}")
+    require("vgg_sim_note" not in metrics and "lpips_unavailable" not in metrics,
+            "the converted VGG19 and LPIPS weights were not used")
+    require("action_variance/avg_variance/global" in metrics, "no action-space statistics")
+    for key, value in metrics.items():
+        if isinstance(value, str):
+            continue
+        values = np.asarray(value, np.float64)
+        if "/kurtosis/" in key:
+            variance = np.asarray(metrics[key.replace("/kurtosis/", "/variance_vector/")])
+            values = values[variance > 0]
+        require(np.isfinite(values).all(), f"{key}: {value}")
+
+
+def after_training(root: str) -> dict:
+    """Phase 11, after training, on phase 10's run: the play CLI, the
+    interpolation, a reference checkpoint's import, the evaluation-dataset
+    builder and the offline evaluation, at BAIR's full width in bf16, then
+    the builder and the frame metrics in f32 on the card against the CPU.
+    Returns the launch counts of its first five steps."""
+    config = loop_config(root)
+    datasets = loop_datasets(config)
+    validation = datasets["validation"]
+    actions_count = config["data"]["actions_count"]
+    width, height = config["model"]["representation_network"]["target_input_size"]
+    frame_shape = (height, width, 3)
+    totals = dict.fromkeys(KERNELS, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    play_base_gib = torch.cuda.memory_allocated() / 2 ** 30
+
+    # 1. The play CLI: the run's latest checkpoint, a start frame of a
+    # validation sequence, the scripted rollout with its single readback.
+    session, observation, logger = load_play_session(config, device="cuda", dataset=validation)
+    require(not session.model.training, "the play model is in training mode")
+    reset_launches()
+    with counted_syncs() as syncs:
+        frames, actions = scripted_rollout(session, actions_count, AFTER_ROLLOUT_FRAMES, logger)
+    launches = read_launches()
+    require(launches == per_frame_launches(AFTER_ROLLOUT_FRAMES),
+            f"the scripted rollout launched {launches}")
+    require(len(syncs) == 1, f"the scripted rollout synchronised {len(syncs)} times: {syncs}")
+    require(frames.dtype == np.uint8 and frames.shape == (AFTER_ROLLOUT_FRAMES,) + frame_shape
+            and frames.std() > 0, (frames.dtype, frames.shape))
+    add_launches(totals, launches)
+    rollout_s = []
+    reset_launches()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        session.rollout(np.asarray(actions))
+        rollout_s.append(time.perf_counter() - start)
+    add_launches(totals, read_launches())
+    emit(phase="after_play_cli", frames=AFTER_ROLLOUT_FRAMES, launches=launches,
+         rollout_syncs=len(syncs), frames_per_s=AFTER_ROLLOUT_FRAMES / statistics.median(rollout_s),
+         frames_per_s_all=[AFTER_ROLLOUT_FRAMES / s for s in rollout_s], card=nvidia_smi())
+
+    # 2. Interpolation: 11 factors x 4 frames, in memory (on disk where
+    # Pillow is installed).
+    reset_launches()
+    sequences = interpolate(config, 0, 3, frames_per_sequence=INTERPOLATION_FRAMES,
+                            device="cuda", dataset=validation,
+                            save=importlib.util.find_spec("PIL") is not None)
+    launches = read_launches()
+    steps = INTERPOLATION_FACTORS * INTERPOLATION_FRAMES
+    require(launches == per_frame_launches(steps), f"{steps} interpolation steps: {launches}")
+    require(len(sequences) == INTERPOLATION_FACTORS, sorted(sequences))
+    for sequence in sequences.values():
+        require(len(sequence) == INTERPOLATION_FRAMES, len(sequence))
+        for frame in sequence:
+            check_frame(frame, frame_shape)
+    add_launches(totals, launches)
+    emit(phase="after_interpolate", sequences=sorted(sequences), launches=launches)
+
+    # 3. A reference .pth.tar of the played weights, imported into a model
+    # seeded otherwise: every tensor bit for bit, then one play frame.
+    source = session.model
+    path = os.path.join(root, "reference.pth.tar")
+    write_reference_checkpoint(source, path)
+    importer = Trainer(config, make_model(config, "cuda", SEED + 1), smooth_mi=True, seed=SEED)
+    importer.init_state()
+    importer.load_reference_weights(path)
+    want, got = source.state_dict(), importer.model.state_dict()
+    require(list(got) == list(want), "the imported model's tensors differ")
+    for key, value in want.items():
+        require(torch.equal(got[key], value), f"{key} was not imported bit for bit")
+    require(importer.state.step == 0 and not importer.state.optimizer.state_dict()["state"],
+            "the import touched the optimizer")
+    reset_launches()
+    frame = PlaySession(importer.model.eval()).start(observation).generate_next(1)
+    launches = read_launches()
+    require(launches == per_frame_launches(1), f"the imported model's step launched {launches}")
+    check_frame(frame, frame_shape)
+    add_launches(totals, launches)
+    emit(phase="after_reference_import", tensors=len(want), bit_exact=True, launches=launches,
+         play_peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+         allocated_before_gib=play_base_gib)
+    del importer, session
+
+    # 4. The evaluation-dataset builder over 2 batches of 8 x 30 test
+    # sequences, on a model that a trainer left in training mode; then a
+    # train step on the same model.
+    test_videos = test_split_videos(config)
+    test = VideoDataset.from_videos(test_videos, config["evaluation"]["batching"],
+                                    get_final_transforms(config)["test"])
+    require(len(test) == BUILDER_BATCHES * LOOP_BATCH, len(test))
+    builder = make_evaluation_dataset_builder(config, device="cuda", dataset=test)
+    trainer = Trainer(config, builder.model, smooth_mi=True, seed=SEED)
+    trainer.init_state()
+    forwards, forward = [], builder._forward
+
+    def recorded_forward(*args):
+        before = read_launches()
+        out = forward(*args)
+        forwards.append(launches_since(before))
+        return out
+
+    builder._forward = recorded_forward
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    builder_base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    start = time.perf_counter()
+    videos = builder.build_videos()  # each batch read back
+    build_s = time.perf_counter() - start
+    builder_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    add_launches(totals, read_launches())
+    want = {"convlstm_gates": EVAL_GATE_LAUNCHES, "convlstm_gates_bwd": 0,
+            "fused_norm_act": len(EVAL_NORM_SHAPES)}
+    require(len(forwards) == BUILDER_BATCHES and all(f == want for f in forwards),
+            f"builder batches launched {forwards}")
+    require(builder.model.training, "the builder left the model in evaluation mode")
+    require(len(videos) == BUILDER_BATCHES * LOOP_BATCH, len(videos))
+    check_evaluation_dataset(videos, EVAL_FRAMES, frame_shape)
+    train_set = datasets["train"]
+    train_set.set_observations_count(LOOP_FRAMES)
+    batch = collate([train_set[i] for i in range(LOOP_BATCH)])
+    reset_launches()
+    metrics = trainer.train_step(batch)
+    launches = read_launches()
+    step_want = {"convlstm_gates": 3 * LOOP_DYNAMICS_STEPS,
+                 "convlstm_gates_bwd": 3 * LOOP_DYNAMICS_STEPS, "fused_norm_act": 0}
+    require(launches == step_want and np.isfinite(metrics["loss"]),
+            f"the train step after the builder launched {launches}, loss {metrics['loss']}")
+    add_launches(totals, launches)
+    emit(phase="after_builder", batches=BUILDER_BATCHES, batch=LOOP_BATCH, frames=EVAL_FRAMES,
+         launches_per_batch=forwards[0], seconds=build_s,
+         seconds_per_batch=build_s / BUILDER_BATCHES, model_mode_restored=True,
+         train_step_after=launches, peak_memory_gib=builder_peak_gib,
+         allocated_before_gib=builder_base_gib)
+    del trainer
+
+    # 5. The offline evaluation: BAIR's evaluator at batch 1 x 30, the test
+    # split against the builder's videos, in memory, with converted-layout
+    # VGG19 and LPIPS weights.
+    eval_config = evaluation_config(root)
+    os.makedirs(eval_config["tpu"]["pretrained_weights_dir"])
+    write_metric_weights(eval_config["tpu"]["pretrained_weights_dir"])
+    reference_transform, generated_transform = get_evaluation_transforms(eval_config)
+    batching = eval_config["evaluation"]["batching"]
+    pair = (VideoDataset.from_videos(test_videos, batching, reference_transform),
+            VideoDataset.from_videos(videos, batching, generated_transform))
+    require(len(pair[0]) == len(pair[1]) == len(videos), (len(pair[0]), len(pair[1])))
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    evaluation_base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    with EvaluationRecorder() as timing:
+        metrics = evaluate_dataset(eval_config, device="cuda", datasets=pair)
+    add_launches(totals, read_launches())
+    check_offline_metrics(metrics, EVAL_FRAMES)
+    require(os.path.isfile(os.path.join(eval_config["logging"]["output_directory"], "data.yml")),
+            "no data.yml")
+    batches = len(timing.frame_s)
+    frame_s, lpips_s = sum(timing.frame_s), sum(timing.lpips_s)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    emit(phase="after_evaluation", batches=batches, keys=len(metrics),
+         seconds=timing.total_s[0], seconds_per_batch=timing.total_s[0] / batches,
+         frame_metrics_and_vgg_s_per_batch=(frame_s - lpips_s) / batches,
+         lpips_s_per_batch=lpips_s / batches,
+         host_loader_detection_actions_s_per_batch=(timing.total_s[0] - frame_s) / batches,
+         psnr_avg=metrics["psnr/avg"], ssim_avg=metrics["ssim/avg"],
+         lpips_avg=metrics["lpips/avg"], vgg_sim_avg=metrics["vgg_sim/avg"],
+         markers=sorted(k for k in metrics if k.endswith("_unavailable")),
+         peak_memory_gib=peak_gib, allocated_before_gib=evaluation_base_gib,
+         card=nvidia_smi())
+
+    # 6. f32 with TF32 off, the card against the plain path on the CPU: one
+    # builder batch of 2 x 8 frames, and one evaluation batch's metrics.
+    after_training_parity(config, eval_config, source.state_dict(), test_videos, pair)
+    emit(phase="after_training", launches=totals)
+    return totals
+
+
+def after_training_parity(config: dict, eval_config: dict, state: dict, test_videos: list,
+                          pair: tuple) -> None:
+    """Phase 11, step 6: f32 with TF32 off, the trained weights through the
+    kernels on the card and the plain versions on the CPU: one builder
+    batch's reconstructions within 1e-3 (the CPU taking the card's
+    inferred actions, which must agree with its own up to ties), and the
+    frame metrics of the first evaluation batch (1 x 30 frames, the
+    converted-layout VGG19 and LPIPS) within rtol 1e-4."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parity_config = copy.deepcopy(config)
+    parity_config["tpu"]["compute_dtype"] = "float32"
+    parity_config["evaluation"]["batching"] = dict(
+        config["evaluation"]["batching"], batch_size=PARITY_BATCH,
+        observations_count=PARITY_FRAMES)
+    dataset = VideoDataset.from_videos(test_videos[:1], parity_config["evaluation"]["batching"],
+                                       get_final_transforms(parity_config)["test"])
+    # The one-hot sampler's argmax may break a near-tie of the action
+    # logits differently on the two devices, and a different action renders
+    # a different frame: the CPU follows the card's actions, and where its
+    # own argmax differs, the two log-probabilities must tie within 1e-4.
+    results, log_probs = {}, {}
+    for device in ("cuda", "cpu"):
+        model = make_model(parity_config, device)
+        model.load_state_dict(state)
+        builder = EvaluationDatasetBuilder(parity_config, model, dataset, Logger())
+
+        def sampler(flat_log_probs, ground_truth, device=device):
+            log_probs[device] = flat_log_probs.detach().float().cpu()
+            index = (flat_log_probs.argmax(-1) if device == "cuda"
+                     else results["cuda"][1].reshape(-1).to(flat_log_probs.device))
+            return torch.nn.functional.one_hot(index, flat_log_probs.shape[-1]).to(
+                flat_log_probs.dtype)
+
+        builder._forward = functools.partial(
+            evaluation_forward, model, ground_truth_observations=(
+                builder.ground_truth_observations_init),
+            gumbel_temperature=builder.temperature, action_sampler=sampler,
+            variation_sampler=zero_action_variation_sampler)
+        batch = next(iter(builder.dataloader))
+        reset_launches()
+        # The action network's sampled directions, from which the inferred
+        # actions come, take the same noise on both: a CPU generator each,
+        # seeded alike, as in phase 8.
+        frames, out = builder.reconstruct(batch, torch.Generator().manual_seed(SEED))
+        results[device] = frames.cpu(), out.selected_actions.cpu()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches = read_launches()
+    want = {"convlstm_gates": 3 * (PARITY_FRAMES - 1), "convlstm_gates_bwd": 0,
+            "fused_norm_act": len(PARITY_NORM_SHAPES)}
+    require(launches == want, f"the f32 builder batch launched {launches}")
+    (got, card_actions), (want_frames, _) = results["cuda"], results["cpu"]
+    width, height = config["model"]["representation_network"]["target_input_size"]
+    require(got.shape == (PARITY_BATCH, PARITY_FRAMES, 3, height, width), got.shape)
+    cpu_log_probs, card = log_probs["cpu"], card_actions.reshape(-1)
+    cpu_choice = cpu_log_probs.argmax(-1)
+    positions = torch.arange(len(card))
+    tie_gap = (cpu_log_probs[positions, cpu_choice] - cpu_log_probs[positions, card]).max().item()
+    log_prob_err = (log_probs["cuda"] - cpu_log_probs).abs().max().item()
+    builder_err = (got - want_frames).abs().max().item()
+    emit(phase="after_builder_parity", dtype="f32", tf32=False, batch=PARITY_BATCH,
+         frames=PARITY_FRAMES, launches=launches, max_abs_err=builder_err, tolerance=1e-3,
+         action_log_prob_max_abs_err=log_prob_err,
+         inferred_actions_differing=int((cpu_choice != card).sum()),
+         inferred_actions=len(card), differing_log_prob_gap=tie_gap)
+    require(tie_gap <= 1e-4, f"the CPU's inferred actions differ from the card's by a "
+                             f"log-probability gap of {tie_gap}, not a tie")
+    require(builder_err <= 1e-3, f"the f32 builder batch differs from the CPU by {builder_err}")
+
+    tree = load_variables_npz(os.path.join(eval_config["tpu"]["pretrained_weights_dir"],
+                                           "vgg19.npz"))
+    heads = load_lpips_linear_weights(os.path.join(eval_config["tpu"]["pretrained_weights_dir"],
+                                                   "lpips_lin.npz"))
+    reference, generated = collate([pair[0][0]]), collate([pair[1][0]])  # batch 1
+    metrics = {}
+    for device in ("cuda", "cpu"):
+        evaluator = DatasetEvaluatorBair(
+            eval_config, Logger(), *pair, vgg_variables=tree,
+            lpips_fn=make_lpips_fn(make_metric_vgg(tree, device), heads), device=device)
+        metrics[device] = evaluator._compute_frame_metrics(reference.observations,
+                                                           generated.observations)
+    errors = {}
+    for key, value in metrics["cpu"].items():
+        errors[key] = float(np.max(np.abs(metrics["cuda"][key] - value)
+                                   / np.maximum(np.abs(value), 1e-12)))
+        require(errors[key] <= 1e-4, f"f32 {key} on the card differs from the CPU: {errors[key]}")
+    emit(phase="after_metric_parity", dtype="f32", tf32=False, frames=EVAL_FRAMES,
+         max_rel_err=errors, tolerance=1e-4)
+
+
 def kernel_group(name: str) -> str:
     return next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)), "other")
 
@@ -1249,11 +1819,13 @@ def main() -> None:
 
     with tempfile.TemporaryDirectory() as root:
         loop_launches = train_loop(root)
+        after_launches = after_training(root)
 
     kernels = [dict(name=name, route="cuda",
                     source=f"playablevideogeneration_tpu_torch/ops/cuda/csrc/{source}.cu",
                     replaces=replaces,
-                    launches=play_launches[name] + train_launches[name] + loop_launches[name],
+                    launches=(play_launches[name] + train_launches[name] + loop_launches[name]
+                              + after_launches[name]),
                     max_abs_err=errors[name], ms=sums[name]["ms"],
                     cold_ms=sums[name]["cold_ms"],
                     plain_ms=sums[name]["plain_ms"], bound_ms=sums[name]["bound_ms"],

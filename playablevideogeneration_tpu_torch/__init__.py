@@ -9,7 +9,10 @@ The port so far covers the interactive play route of the model
 (``models.caddy.Caddy.play_step`` and ``inference.play_session``) and
 training: the training step (``training.trainer.Trainer.train_step``) and
 the train CLI (``cli.train``) with its configuration, data pipeline, epoch
-loop, checkpoints and in-training evaluation.  Three hand-written CUDA
+loop, checkpoints and in-training evaluation; and what comes after
+training: the play and interpolate CLIs, the import of the reference's
+``.pth.tar`` checkpoints, and the offline evaluation (``cli.build_evaluation_dataset``,
+``cli.evaluate_dataset``).  Three hand-written CUDA
 kernels for ``sm_90a`` under ``ops/cuda`` carry them: the ConvLSTM gate
 update, forward and backward, and the frozen-BatchNorm + LeakyReLU
 epilogue.

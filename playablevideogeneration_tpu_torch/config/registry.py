@@ -3,8 +3,8 @@
 Counterpart of ``playablevideogeneration_tpu/config/registry.py``: the YAML
 names its model, trainer and evaluator by the reference's dotted module
 paths, and the registry maps those strings (and their short aliases) to
-the port's factories.  The evaluation-dataset builder and the dataset
-evaluators are not ported yet, so their kinds hold nothing.
+the port's factories: models, trainers, the in-training evaluator, the
+evaluation-dataset builder and the offline dataset evaluators.
 """
 from __future__ import annotations
 
@@ -40,6 +40,12 @@ def resolve(kind: str, name: str) -> Callable:
 def _register_defaults():
     """Registers the built-in components; imported here, on first use, to
     keep the registry free of import cycles."""
+    from playablevideogeneration_tpu_torch.evaluation.builder import make_builder
+    from playablevideogeneration_tpu_torch.evaluation.dataset_evaluator import (
+        make_dataset_evaluator,
+        make_dataset_evaluator_bair,
+        make_dataset_evaluator_breakout,
+    )
     from playablevideogeneration_tpu_torch.evaluation.evaluator import make_evaluator
     from playablevideogeneration_tpu_torch.models.caddy import make_model
     from playablevideogeneration_tpu_torch.training.smooth_mi import make_smooth_mi_trainer
@@ -52,3 +58,10 @@ def _register_defaults():
     _REGISTRIES["trainer"].setdefault("training.trainer", make_trainer)
     _REGISTRIES["trainer"].setdefault("training.smooth_mi_trainer", make_smooth_mi_trainer)
     _REGISTRIES["evaluator"].setdefault("evaluation.evaluator", make_evaluator)
+    _REGISTRIES["builder"].setdefault("evaluation.evaluation_dataset_builder", make_builder)
+    _REGISTRIES["dataset_evaluator"].setdefault("evaluation.dataset_evaluator",
+                                                make_dataset_evaluator)
+    _REGISTRIES["dataset_evaluator"].setdefault("evaluation.dataset_evaluator_bair",
+                                                make_dataset_evaluator_bair)
+    _REGISTRIES["dataset_evaluator"].setdefault("evaluation.dataset_evaluator_breakout",
+                                                make_dataset_evaluator_breakout)

@@ -20,11 +20,20 @@ import numpy as np
 _EXTENSIONS = (".png", ".jpg", ".jpeg", ".bmp")
 
 
+def pillow_image(purpose: str):
+    """Pillow's ``Image`` module; raises an ImportError that names
+    ``purpose`` when Pillow is not installed."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"{purpose} needs Pillow, which is not installed") from e
+    return Image
+
+
 def read_frame(path: str) -> np.ndarray:
     """An image file as an (H, W, 3) uint8 array, transparency flattened
     onto white."""
-    from PIL import Image
-
+    Image = pillow_image(f"reading {path}")
     with Image.open(path) as image:
         if image.mode in ("RGBA", "LA", "P"):
             image = image.convert("RGBA")
@@ -39,9 +48,7 @@ def read_frame(path: str) -> np.ndarray:
 def write_frame(path: str, frame: np.ndarray) -> None:
     """Writes an (H, W, 3) uint8 array as an image file (format from the
     extension)."""
-    from PIL import Image
-
-    Image.fromarray(frame).save(path)
+    pillow_image(f"writing {path}").fromarray(frame).save(path)
 
 
 class Video:

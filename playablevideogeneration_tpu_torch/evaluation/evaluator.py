@@ -15,8 +15,9 @@ The noise comes from a generator on the model's device seeded with
 """
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -24,7 +25,7 @@ import torch
 from playablevideogeneration_tpu_torch.data.loader import DataLoader
 from playablevideogeneration_tpu_torch.data.video import write_frame
 from playablevideogeneration_tpu_torch.evaluation.hungarian import compute_actions_accuracy
-from playablevideogeneration_tpu_torch.models.caddy import ActionSampler, Caddy
+from playablevideogeneration_tpu_torch.models.caddy import ActionSampler, Caddy, VariationSampler
 from playablevideogeneration_tpu_torch.models.outputs import ModelOutput
 from playablevideogeneration_tpu_torch.models.vgg import Vgg19, make_vgg
 from playablevideogeneration_tpu_torch.training import losses
@@ -43,6 +44,33 @@ _SCALARS = ("observations_loss/avg", "perceptual_loss/avg", "states_loss/avg", "
 def _nhwc(x: torch.Tensor) -> np.ndarray:
     """(B, T, C, H, W) tensor -> (B, T, H, W, C) f32 numpy."""
     return x.detach().float().permute(0, 1, 3, 4, 2).cpu().numpy()
+
+
+@contextlib.contextmanager
+def eval_mode(model: Caddy) -> Iterator[Caddy]:
+    """The model in evaluation mode within the block (frozen BatchNorm
+    statistics, no centroid update), its previous mode restored after it:
+    a train step after an evaluation must normalise with batch statistics
+    again."""
+    was_training = model.training
+    model.eval()
+    try:
+        yield model
+    finally:
+        model.train(was_training)
+
+
+@torch.no_grad()
+def evaluation_forward(model: Caddy, observations: torch.Tensor, actions: torch.Tensor,
+                       generator: torch.Generator, ground_truth_observations: int,
+                       gumbel_temperature: float, action_sampler: Optional[ActionSampler] = None,
+                       variation_sampler: Optional[VariationSampler] = None) -> ModelOutput:
+    """The full forward of the evaluation passes and of the evaluation
+    dataset's reconstructions, without gradients, on a model in evaluation
+    mode (``eval_mode``)."""
+    return model(observations, actions, ground_truth_observations, generator=generator,
+                 gumbel_temperature=gumbel_temperature, action_sampler=action_sampler,
+                 variation_sampler=variation_sampler)
 
 
 class Evaluator:
@@ -80,13 +108,12 @@ class Evaluator:
             raise RuntimeError("Action mapping requires a prior evaluate() call")
         return self.best_action_mappings
 
-    @torch.no_grad()
     def _forward(self, observations: torch.Tensor, actions: torch.Tensor,
                  generator: torch.Generator) -> ModelOutput:
         """One batch through the model, which is in evaluation mode."""
-        return self.model(observations, actions, GROUND_TRUTH_OBSERVATIONS, generator=generator,
-                          gumbel_temperature=GUMBEL_TEMPERATURE,
-                          action_sampler=self.action_sampler)
+        return evaluation_forward(self.model, observations, actions, generator,
+                                  GROUND_TRUTH_OBSERVATIONS, GUMBEL_TEMPERATURE,
+                                  self.action_sampler)
 
     @torch.no_grad()
     def _batch_metrics(self, observations: torch.Tensor, out: ModelOutput) -> torch.Tensor:
@@ -117,9 +144,7 @@ class Evaluator:
         all_pred, all_gt = [], []
         generator = torch.Generator(device=self.device).manual_seed(1234 + step)
         self.logger.print(f"== Evaluation [{step}][{self.logger_prefix}] ==")
-        was_training = self.model.training
-        self.model.eval()
-        try:
+        with eval_mode(self.model):
             batches_done = 0
             first = None
             for batch in self.dataloader:
@@ -146,8 +171,6 @@ class Evaluator:
                 all_gt.append(np.asarray(batch.actions[:, :-1]).reshape(-1))
             if save_images and first is not None:
                 self._save_examples(*first, step)
-        finally:
-            self.model.train(was_training)
 
         if not all_pred:
             self.logger.print("- No evaluation batches available")

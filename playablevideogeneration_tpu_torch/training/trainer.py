@@ -9,7 +9,8 @@ smooth-MI matrix; it returns its metrics with one device-to-host transfer.
 ``train_epoch`` drives it over the ``DataLoader``'s batches with the
 annealing schedules, logging, the optional gradient histograms, profiler
 window and action-space plots; ``save_checkpoint`` and ``load_checkpoint``
-write and read the training state.
+write and read the training state, and ``load_reference_weights`` imports
+a reference ``.pth.tar``'s weights.
 """
 from __future__ import annotations
 
@@ -27,7 +28,11 @@ from playablevideogeneration_tpu_torch.models.vgg import Vgg19, make_vgg
 from playablevideogeneration_tpu_torch.training import losses, schedules
 from playablevideogeneration_tpu_torch.training.train_state import TrainState
 from playablevideogeneration_tpu_torch.utils import checkpoint as ckpt_lib
+from playablevideogeneration_tpu_torch.utils.jax_weights import load_jax_variables
 from playablevideogeneration_tpu_torch.utils.logging import AverageMeter, Logger
+from playablevideogeneration_tpu_torch.utils.reference_checkpoint import (
+    load_reference_checkpoint,
+)
 from playablevideogeneration_tpu_torch.utils.tensor_ops import sequence_to_nchw
 
 # Metrics of train_step that train_epoch prints every step.
@@ -246,6 +251,16 @@ class Trainer:
             raise RuntimeError("call init_state first")
         self.state.load_state_dict(ckpt_lib.restore_checkpoint(self._checkpoint_path(name)))
         self.global_step = self.state.step
+
+    def load_reference_weights(self, path: str) -> None:
+        """Imports the model's weights from a reference ``.pth.tar``
+        checkpoint (the released CADDY checkpoints), converted by
+        ``utils.reference_checkpoint``.  The optimizer's state and the step
+        stay as ``init_state`` built them: an import, not a resume."""
+        if self.state is None:
+            raise RuntimeError("call init_state first")
+        load_jax_variables(self.model, load_reference_checkpoint(path))
+        self.logger.print(f"- Imported reference checkpoint weights from {path}")
 
     # Host-side schedules of the global step.
 

@@ -193,11 +193,28 @@ def test_flagship_model_matches_bair_config():
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    from playablevideogeneration_tpu_torch.cli.build_evaluation_dataset import (
+        build_evaluation_dataset,
+        make_evaluation_dataset_builder,
+    )
+    from playablevideogeneration_tpu_torch.cli.evaluate_dataset import evaluate_dataset
+    from playablevideogeneration_tpu_torch.cli.interpolate import interpolate
+    from playablevideogeneration_tpu_torch.cli.play import load_play_session, load_trained_model
+    from playablevideogeneration_tpu_torch.utils.pretrained import make_metric_vgg
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         flagship_model()
+    # The entry points after training resolve the device before they read
+    # anything of the config.
+    for entry in (lambda: load_play_session({}), lambda: load_trained_model({}, "test"),
+                  lambda: interpolate({}, 0, 1), lambda: build_evaluation_dataset({}),
+                  lambda: make_evaluation_dataset_builder({}), lambda: evaluate_dataset({}),
+                  lambda: make_metric_vgg(None)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry()
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -228,9 +245,16 @@ def test_port_imports_no_jax():
                             text=True, timeout=120)
     assert result.returncode == 0, result.stderr
     imported = set(result.stdout.split())
-    training_route = {f"playablevideogeneration_tpu_torch.{name}" for name in (
+    covered = {f"playablevideogeneration_tpu_torch.{name}" for name in (
         "models.action", "models.centroids", "models.gumbel", "models.outputs", "models.vgg",
         "training.bench_harness", "training.losses", "training.schedules",
         "training.smooth_mi", "training.train_state", "training.trainer",
-        "utils.tensor_ops")}
-    assert training_route <= imported and len(imported) >= 29
+        "utils.tensor_ops",
+        # after training: play, interpolate, reference import, offline evaluation
+        "cli.play", "cli.interpolate", "cli.build_evaluation_dataset", "cli.evaluate_dataset",
+        "utils.reference_checkpoint", "utils.input_helper", "utils.video_saver",
+        "utils.pretrained", "evaluation.builder", "evaluation.dataset_evaluator",
+        "evaluation.metrics.frame_metrics", "evaluation.metrics.lpips",
+        "evaluation.metrics.detection", "evaluation.metrics.action_metrics",
+        "evaluation.plotting.density_plots")}
+    assert covered <= imported and len(imported) >= 46
