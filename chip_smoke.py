@@ -12,7 +12,8 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
 2. build: compiles every kernel under
    ``playablevideogeneration_tpu_torch/ops/cuda/csrc`` with nvcc for sm_90a;
    Reports each kernel's registers and spills (``-Xptxas=-v``) and, where
-   the toolkit has ``cuobjdump``, its static SASS instruction count;
+   the toolkit has ``cuobjdump``, its static SASS instruction count (per
+   element for the gate kernels);
 3. kernels: holds each kernel against its plain PyTorch version on the card
    at every shape the flagship's play and training steps give it (batch 1
    and 16), the training loop's gate shapes at batch 8, every shape an
@@ -20,10 +21,12 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    and phase 11's f32 builder batch of 2 x 8 frames gives K1 and K3, plus a
    ragged case (3x65x25x40), a C*H*W that is no multiple of a vector
    (3x5x7x9) and inputs whose storage starts one element into its buffer,
-   in f32 and bf16: each must equal its plain version bit for bit, and each
-   case must take the path it should (packs of 4 elements for K1 and of 16
-   bytes for K3, or one element per thread where the sizes or the
-   alignment forbid them); and the gate
+   in f32 and bf16, and K2 at the training and loop shapes, the ragged and
+   unvectored cases and a view one element into its buffer: each must
+   equal its plain version bit for bit, and each case must take the path
+   it should (packs of 4 elements for K1 and K2 and of 16 bytes for K3,
+   or one element per thread where the sizes or the alignment forbid
+   them); and the gate
    update's autograd function (K1 forward, K2 backward) against autograd
    through the plain gate math (1e-5);
 4. play route: the bf16 flagship (configs/01_bair.yaml, seeded random
@@ -67,8 +70,12 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    machine has neither Pillow nor PyYAML): batch 8 at 7 frames, 2
    pretraining and 4 full-phase steps, ``latest`` and ``checkpoint_6``, and
    the evaluation's three passes (Gumbel, one-hot, ground truth through the
-   Hungarian mapping) at 8 x 30 frames.  Every train step must give finite
-   values, the schedules' values at its step, and launch K1 and K2 3(T-1)
+   Hungarian mapping) at 8 x 30 frames, with a random VGG19 written as
+   converted weights (``vgg19.npz``, seeded apart from the fallbacks) into
+   ``tpu.pretrained_weights_dir``: the run's trainer must load it bit for
+   bit, computing in bf16, and a run's two evaluators must share it in
+   f32.  Every train step must give finite values, the
+   schedules' values at its step, and launch K1 and K2 3(T-1)
    times each and K3 never (steps after an evaluation included); every
    evaluation batch K1 87 and K3 446 times and K2 never; one-hot samples
    no entropy and the ground-truth pass accuracy 1; a fresh run's
@@ -162,6 +169,7 @@ from playablevideogeneration_tpu_torch.evaluation.metrics.lpips import (
 from playablevideogeneration_tpu_torch.inference.play_session import PlaySession
 from playablevideogeneration_tpu_torch.models.caddy import flagship_model, make_model
 from playablevideogeneration_tpu_torch.models.layers import BatchNorm
+from playablevideogeneration_tpu_torch.models.vgg import make_vgg
 from playablevideogeneration_tpu_torch.ops.cuda import build
 from playablevideogeneration_tpu_torch.ops.cuda.convlstm_gates import (
     _PACK as GATE_PACK,
@@ -183,12 +191,18 @@ from playablevideogeneration_tpu_torch.training.trainer import Trainer
 from playablevideogeneration_tpu_torch.utils.checkpoint import STATE_FILE
 from playablevideogeneration_tpu_torch.utils.logging import Logger
 from playablevideogeneration_tpu_torch.utils.pretrained import (
+    RANDOM_VGG_SEED,
     load_variables_npz,
     make_metric_vgg,
     save_variables_npz,
 )
 
 SEED = 0
+# The random VGG19 of the converted weights that phase 10's run loads:
+# seeded apart from both fallbacks when no weights are found (the trainer's
+# from the run's seed, SEED; the metrics' from RANDOM_VGG_SEED), so that a
+# VGG19 equal to the file's was loaded from it.
+WEIGHTS_SEED = 5
 # configs/01_bair.yaml as a dict, since the card's machine has no PyYAML;
 # tests/test_torch_data.py pins it to the file.
 BAIR_LOSS_WEIGHTS = {}
@@ -471,9 +485,9 @@ def gate_inputs(shape, dtype, gen, offset: int = 0):
                                                                        offset)
 
 
-def gate_backward_inputs(shape, dtype, gen):
-    return gate_inputs(shape, dtype, gen) + tuple(on_card(shape, dtype, gen)
-                                                  for _ in range(2))  # dh, dc
+def gate_backward_inputs(shape, dtype, gen, offset: int = 0):
+    return gate_inputs(shape, dtype, gen, offset) + tuple(
+        on_card(shape, dtype, gen, 1.0, offset) for _ in range(2))  # dh, dc
 
 
 def norm_inputs(shape, dtype, gen, offset: int = 0):
@@ -508,17 +522,21 @@ def compare(name, shape, dtype, got, want) -> float:
 
 
 def check_kernels(gen) -> dict:
-    """Phase 3, K1 and K3; returns the largest error of each kernel.  The
-    unvectored shape and the views that start one element into their
+    """Phase 3, K1, K2 and K3; returns the largest error of each kernel.
+    The unvectored shape and the views that start one element into their
     buffers must run one element per thread, and each kernel must run
     packs at some flagship shape in each dtype."""
-    errors = {"convlstm_gates": 0.0, "fused_norm_act": 0.0}
+    errors = dict.fromkeys(KERNELS, 0.0)
     for dtype in (torch.float32, torch.bfloat16):
         cases = [("convlstm_gates", s, o, gate_inputs(s, dtype, gen, o), fused_lstm_gates,
                   _gate_math)
                  for s, o in [(s, 0) for s in unique(GATE_SHAPES + GATE_TRAIN_SHAPES
                                                      + GATE_LOOP_SHAPES + GATE_PARITY_SHAPES)]
                  + [(GATE_RAGGED_SHAPE, 0), (UNVECTORED_SHAPE, 0), (GATE_SHAPES[0], 1)]]
+        cases += [("convlstm_gates_bwd", s, o, gate_backward_inputs(s, dtype, gen, o),
+                   fused_lstm_gates_bwd, _gate_math_bwd)
+                  for s, o in [(s, 0) for s in unique(GATE_TRAIN_SHAPES + GATE_LOOP_SHAPES)]
+                  + [(GATE_RAGGED_SHAPE, 0), (UNVECTORED_SHAPE, 0), (GATE_TRAIN_SHAPES[0], 1)]]
         cases += [("fused_norm_act", s, o, norm_inputs(s, dtype, gen, o),
                    fused_batch_norm_leaky_relu, _batch_norm_leaky_relu)
                   for s, o in [(s, 0) for s in unique(NORM_SHAPES + EVAL_NORM_SHAPES
@@ -530,11 +548,15 @@ def check_kernels(gen) -> dict:
             torch.cuda.synchronize()
             err = compare(name, shape, dtype, got, want)
             errors[name] = max(errors[name], err)
-            # The width the wrapper chose: K1 walks C*H*W of c and gates in
-            # packs of GATE_PACK, K3 H*W of x in 16-byte packs.
+            # The width the wrapper chose: K1 walks C*H*W of c and gates, K2
+            # C*H*W of its inputs and outputs, in packs of GATE_PACK; K3 H*W
+            # of x in 16-byte packs.
             if name == "convlstm_gates":
                 width = build.vector_width(math.prod(shape[1:]), args[1], args[0],
                                            elements=GATE_PACK)
+            elif name == "convlstm_gates_bwd":
+                width = build.vector_width(math.prod(shape[1:]), args[1], args[0], *args[2:],
+                                           *got, elements=GATE_PACK)
             else:
                 width = build.vector_width(math.prod(shape[2:]), args[0],
                                            elements=16 // args[0].element_size())
@@ -547,21 +569,11 @@ def check_kernels(gen) -> dict:
     return errors
 
 
-def check_gate_backward(gen) -> float:
-    """Phase 3, K2: returns its largest error against ``_gate_math_bwd``."""
-    worst = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        for shape in unique(GATE_TRAIN_SHAPES + GATE_LOOP_SHAPES) + [GATE_RAGGED_SHAPE]:
-            args = gate_backward_inputs(shape, dtype, gen)
-            got, want = fused_lstm_gates_bwd(*args), _gate_math_bwd(*args)
-            torch.cuda.synchronize()
-            err = compare("gate_bwd", shape, dtype, got, want)
-            worst = max(worst, err)
-            emit(phase="kernel_check", kernel="convlstm_gates_bwd", shape=shape,
-                 dtype=DTYPE_NAMES[dtype], max_abs_err=err)
-    # The autograd function (K1 forward, K2 backward) against autograd
-    # through the plain gate math, which differentiates sigmoid and tanh
-    # in its own order of operations: 1e-5 in f32.
+def check_gate_autograd(gen) -> None:
+    """Phase 3, the gate update's autograd function (K1 forward, K2
+    backward) against autograd through the plain gate math, which
+    differentiates sigmoid and tanh in its own order of operations: 1e-5
+    in f32."""
     gates, c, dh, dc = gate_backward_inputs(GATE_RAGGED_SHAPE, torch.float32, gen)
     grads = []
     for fn in (fused_lstm_gates, _gate_math):
@@ -572,7 +584,6 @@ def check_gate_backward(gen) -> float:
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
     emit(phase="autograd_check", function="_FusedGates", shape=GATE_RAGGED_SHAPE,
          dtype="f32", max_abs_err=err, tolerance=1e-5)
-    return worst
 
 
 def check_frame(frame: np.ndarray, shape) -> None:
@@ -1035,6 +1046,34 @@ def state_snapshot(trainer: Trainer) -> dict:
         global_step=trainer.global_step)
 
 
+def require_configured_vgg(config: dict, trainer: Trainer, evaluators: dict) -> None:
+    """The converted VGG19 that phase 10's config names, loaded bit for bit
+    by the run's trainer (computing in the model's dtype) and by a run's
+    two evaluators (one VGG19, in f32); the file's weights differ from both
+    seeded fallbacks."""
+    params = load_variables_npz(os.path.join(config["tpu"]["pretrained_weights_dir"],
+                                             "vgg19.npz"))["params"]
+    want = {f"{name}.{key}": torch.from_numpy(
+        value.transpose(3, 2, 0, 1) if key == "kernel" else value)
+        for name, conv in params.items() for key, value in conv.items()}
+    dtype = trainer.model.dtype
+    require(evaluators["validation"].vgg is evaluators["test"].vgg,
+            "the evaluators do not share one VGG19")
+    for fallback in (make_vgg("cpu", dtype, SEED), make_metric_vgg(None, "cpu")):
+        require(not torch.equal(fallback.conv0.weight, want["conv0.kernel"]),
+                "the file's VGG19 is a seeded fallback's")
+    for what, vgg, compute in (("trainer", trainer.vgg, dtype),
+                               ("evaluators", evaluators["validation"].vgg, torch.float32)):
+        got = {k.replace("weight", "kernel"): v.cpu() for k, v in vgg.state_dict().items()}
+        require(got.keys() == want.keys(), f"{what}: VGG19 tensors {sorted(got)}")
+        require(all(torch.equal(got[k], want[k]) for k in want),
+                f"{what}: the VGG19 is not the configured vgg19.npz")
+        require(all(conv.compute_dtype == compute for conv in vgg.children()),
+                f"{what}: the VGG19 does not compute in {compute}")
+    emit(phase="loop_vgg", weights_seed=WEIGHTS_SEED, trainer_dtype=str(dtype),
+         evaluators_dtype="torch.float32", bit_exact=True, shared_by_evaluators=True)
+
+
 def require_same_state(got: dict, want: dict) -> None:
     for part in ("model", "adam"):
         require(got[part].keys() == want[part].keys(), f"{part}: different entries")
@@ -1115,6 +1154,8 @@ def train_loop(root: str) -> dict:
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
     config = loop_config(root)
+    config["tpu"]["pretrained_weights_dir"] = os.path.join(root, "vgg")
+    write_vgg_weights(os.path.join(root, "vgg", "vgg19.npz"), WEIGHTS_SEED)
     pretraining_steps = config["training"]["pretraining_steps"]
     datasets = loop_datasets(config)
     for name, frames, batches in (("train", LOOP_FRAMES, 6), ("validation", EVAL_FRAMES, 2)):
@@ -1140,7 +1181,8 @@ def train_loop(root: str) -> dict:
         trainer.save_checkpoint("timed")
         save_s = time.perf_counter() - start
         checkpoint_bytes = os.path.getsize(os.path.join(save_root, "timed", STATE_FILE))
-        _, _, restored, _, _ = build_run(config, device="cuda", datasets=datasets)
+        _, _, restored, evaluators, _ = build_run(config, device="cuda", datasets=datasets)
+        require_configured_vgg(config, trainer, evaluators)
         restored.init_state()
         torch.cuda.synchronize()
         start = time.perf_counter()
@@ -1306,16 +1348,22 @@ def test_split_videos(config: dict) -> list:
             for i in range(TEST_VIDEOS)]
 
 
-def write_metric_weights(directory: str) -> None:
-    """Random, seeded ``vgg19.npz`` and ``lpips_lin.npz`` in the layout that
-    ``tools/convert_weights.py`` writes (flax names and HWIO kernels; one
-    (C,) head per level), so that the pretrained VGG19 and LPIPS run."""
-    vgg = make_metric_vgg(None, "cpu")
+def write_vgg_weights(path: str, seed: int) -> None:
+    """A random VGG19 seeded with ``seed`` as ``tools/convert_weights.py``
+    writes ``vgg19.npz`` (flax names and HWIO kernels)."""
+    vgg = make_vgg("cpu", torch.float32, seed)
     params = {}
     for name, conv in vgg.named_children():
         params[name] = {"kernel": conv.weight.detach().permute(2, 3, 1, 0).numpy(),
                         "bias": conv.bias.detach().numpy()}
-    save_variables_npz({"params": params}, os.path.join(directory, "vgg19.npz"))
+    save_variables_npz({"params": params}, path)
+
+
+def write_metric_weights(directory: str) -> None:
+    """Random, seeded ``vgg19.npz`` (the metrics' fallback's weights) and
+    ``lpips_lin.npz`` in the converter's layout (one (C,) head per level),
+    so that the pretrained VGG19 and LPIPS run."""
+    write_vgg_weights(os.path.join(directory, "vgg19.npz"), RANDOM_VGG_SEED)
     rng = np.random.default_rng(SEED)
     np.savez(os.path.join(directory, "lpips_lin.npz"),
              **{f"lin{i}": rng.uniform(0, 1, c).astype(np.float32)
@@ -1717,6 +1765,7 @@ PTXAS_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 PTXAS_REGISTERS = re.compile(r"Used (\d+) registers")
 SASS_KERNEL = re.compile(r"Function : (\S+)")
 SASS_INSTRUCTION = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?!NOP\b)\S")
+GATE_KERNEL_PACK = re.compile(r"gates_(?:fwd|bwd)_kernel<\w+,(\d+)>")
 
 
 def kernel_label(mangled: str) -> str:
@@ -1728,10 +1777,11 @@ def kernel_label(mangled: str) -> str:
     return f"{m.group(1)}<{','.join(args + [m.group(3)] * bool(m.group(3)))}>"
 
 
-def kernel_report(logs: dict) -> dict:
+def kernel_report(logs: dict, libraries=None) -> dict:
     """Each kernel's registers and spills from nvcc's ``-Xptxas=-v`` output
     and, where the toolkit has ``cuobjdump``, its static SASS instruction
-    count (NOPs aside)."""
+    count (NOPs aside) in ``libraries`` (default: the port's), and per
+    element for the gate kernels."""
     report, current = {}, {}
     for line in "\n".join(logs.values()).splitlines():
         if m := PTXAS_KERNEL.search(line):
@@ -1743,8 +1793,10 @@ def kernel_report(logs: dict) -> dict:
     cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
     if not cuobjdump.is_file():
         return report
-    for name in build.sources():
-        sass = subprocess.run([str(cuobjdump), "-sass", str(build.library_path(name))],
+    if libraries is None:
+        libraries = [build.library_path(name) for name in build.sources()]
+    for library in libraries:
+        sass = subprocess.run([str(cuobjdump), "-sass", str(library)],
                               capture_output=True, text=True, check=True, timeout=120).stdout
         for line in sass.splitlines():
             if m := SASS_KERNEL.search(line):
@@ -1752,6 +1804,11 @@ def kernel_report(logs: dict) -> dict:
                 current["sass_instructions"] = 0
             elif SASS_INSTRUCTION.search(line):
                 current["sass_instructions"] += 1
+    # The gate kernels take one step of N elements per thread, so their
+    # static count over N is their issue per element.
+    for label, entry in report.items():
+        if (m := GATE_KERNEL_PACK.fullmatch(label)) and "sass_instructions" in entry:
+            entry["sass_per_element"] = entry["sass_instructions"] / int(m.group(1))
     return report
 
 
@@ -1792,7 +1849,7 @@ def main() -> None:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errors = check_kernels(gen)
-    errors["convlstm_gates_bwd"] = check_gate_backward(gen)
+    check_gate_autograd(gen)
 
     rng = np.random.default_rng(SEED)
     obs = rng.uniform(-1, 1, (256, 256, 3)).astype(np.float32)

@@ -19,8 +19,6 @@ import argparse
 import os
 from typing import Mapping, Optional
 
-import torch
-
 from playablevideogeneration_tpu_torch.config import registry
 from playablevideogeneration_tpu_torch.config.configuration import Configuration
 from playablevideogeneration_tpu_torch.data.splitter import generate_splits
@@ -30,10 +28,10 @@ from playablevideogeneration_tpu_torch.evaluation.action_sampler import (
     make_ground_truth_action_sampler,
     one_hot_action_sampler,
 )
-from playablevideogeneration_tpu_torch.models.vgg import make_vgg
 from playablevideogeneration_tpu_torch.utils import checkpoint as ckpt_lib
 from playablevideogeneration_tpu_torch.utils.device import DeviceLike, resolve_device
 from playablevideogeneration_tpu_torch.utils.logging import Logger
+from playablevideogeneration_tpu_torch.utils.pretrained import get_vgg_variables, make_metric_vgg
 
 
 def build_run(config_dict: dict, use_wandb: bool = False, logger: Optional[Logger] = None,
@@ -63,10 +61,11 @@ def build_run(config_dict: dict, use_wandb: bool = False, logger: Optional[Logge
     trainer = registry.resolve("trainer", config_dict["training"]["trainer"])(
         config_dict, model, datasets["train"], logger, seed=seed)
     make_evaluator = registry.resolve("evaluator", config_dict["evaluation"]["evaluator"])
-    # The evaluators' VGG computes in f32 whatever the model's dtype; the
-    # test evaluator is built for callers that evaluate the test split
-    # themselves, training drives only the validation one.
-    vgg = make_vgg(device, torch.float32, seed)
+    # The evaluators share one VGG, the config's converted weights or seeded
+    # random ones, in f32 whatever the model's dtype; the test evaluator is
+    # built for callers that evaluate the test split themselves, training
+    # drives only the validation one.
+    vgg = make_metric_vgg(get_vgg_variables(config_dict)[0], device)
     evaluators = {name: make_evaluator(config_dict, model, datasets[name], logger,
                                        action_sampler=None, logger_prefix=name, vgg=vgg)
                   for name in ("validation", "test")}

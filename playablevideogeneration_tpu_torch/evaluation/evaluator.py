@@ -27,9 +27,10 @@ from playablevideogeneration_tpu_torch.data.video import write_frame
 from playablevideogeneration_tpu_torch.evaluation.hungarian import compute_actions_accuracy
 from playablevideogeneration_tpu_torch.models.caddy import ActionSampler, Caddy, VariationSampler
 from playablevideogeneration_tpu_torch.models.outputs import ModelOutput
-from playablevideogeneration_tpu_torch.models.vgg import Vgg19, make_vgg
+from playablevideogeneration_tpu_torch.models.vgg import Vgg19
 from playablevideogeneration_tpu_torch.training import losses
 from playablevideogeneration_tpu_torch.utils.logging import AverageMeter, Logger
+from playablevideogeneration_tpu_torch.utils.pretrained import get_vgg_variables, make_metric_vgg
 from playablevideogeneration_tpu_torch.utils.tensor_ops import sequence_to_nchw
 
 # The evaluation forward's ground-truth frames and Gumbel temperature.
@@ -74,12 +75,13 @@ def evaluation_forward(model: Caddy, observations: torch.Tensor, actions: torch.
 
 
 class Evaluator:
-    """:param vgg: the perceptual loss's VGG19; by default a seeded one in
-        f32 (``models.vgg.make_vgg``), as the JAX evaluator's"""
+    """:param vgg: the perceptual loss's VGG19; by default the config's
+        converted weights, or seeded random ones when there are none, in
+        f32 (``utils.pretrained.make_metric_vgg``), as the JAX evaluator's"""
 
     def __init__(self, config: dict, model: Caddy, dataset, logger: Logger,
                  action_sampler: Optional[ActionSampler] = None, logger_prefix: str = "test",
-                 vgg: Optional[Vgg19] = None, seed: int = 0):
+                 vgg: Optional[Vgg19] = None):
         self.config = config
         self.model = model
         self.dataset = dataset
@@ -93,7 +95,9 @@ class Evaluator:
         b = config["evaluation"]["batching"]
         self.dataloader = DataLoader(dataset, batch_size=b["batch_size"], shuffle=False,
                                      drop_last=True, num_workers=b["num_workers"])
-        self.vgg = vgg if vgg is not None else make_vgg(self.device, torch.float32, seed)
+        if vgg is None:
+            vgg = make_metric_vgg(get_vgg_variables(config)[0], self.device)
+        self.vgg = vgg
 
     def set_action_sampler(self, action_sampler: Optional[ActionSampler],
                            label: Optional[str] = None) -> None:

@@ -8,13 +8,14 @@ The kernels (``csrc/convlstm_gates.cu``) replace the Pallas TPU kernels
 of the ``custom_vjp`` ``_fused_gates_pallas``, which saves (gates, c) and
 recomputes the activations in the backward.
 
-Both kernels are bound by memory traffic on an H100: the forward reads the
-fused 4C-channel gate convolution's output and the cell state once and
-writes only (h', c'), 14 bytes per state element in bf16; the backward
-reads (gates, c, dh, dc) and writes (dgates, dc_prev), 24 bytes per state
+Both kernels are bound by memory traffic on an H100, with instruction
+issue close behind at the training shapes: the forward reads the fused
+4C-channel gate convolution's output and the cell state once and writes
+only (h', c'), 14 bytes per state element in bf16; the backward reads
+(gates, c, dh, dc) and writes (dgates, dc_prev), 24 bytes per state
 element in bf16, 50 MB (15 us at 3.35 TB/s) for the flagship's 32x32x128
-state at the training batch of 16.  The forward walks each batch slice
-with a pack of 4 elements per stream and thread where
+state at the training batch of 16.  Both walk each batch slice on a 2-D
+grid, with a pack of 4 elements per stream and thread where
 ``build.vector_width`` allows it, one element per thread otherwise.
 """
 from __future__ import annotations
@@ -27,12 +28,12 @@ import torch
 from playablevideogeneration_tpu_torch.ops.cuda import build
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-# Elements per thread of K1's packed path (``kFwdPack`` in the source).
+# Elements per thread of K1's and K2's packed paths (``kFwdPack`` and
+# ``kBwdPack`` in the source).
 _PACK = 4
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
                                      ctypes.c_int, ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                                         ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 6 + _ARGTYPES[4:]
 
 
 def _gate_math(gates: torch.Tensor, c: torch.Tensor
@@ -68,7 +69,8 @@ def _gate_math_bwd(gates: torch.Tensor, c: torch.Tensor, dh: torch.Tensor,
 
 def _check(gates: torch.Tensor, c: torch.Tensor, *state_like: torch.Tensor) -> None:
     """Shapes, dtypes, device and contiguity of gates (B, 4C, H, W) and of
-    c and any further (B, C, H, W) tensors (the backward's dh, dc)."""
+    c and any further (B, C, H, W) tensors (the backward's dh, dc), and a
+    batch slice of gates below 2**31 elements."""
     if c.dim() != 4 or gates.dim() != 4:
         raise ValueError(f"expected NCHW gates and c, got {tuple(gates.shape)} "
                          f"and {tuple(c.shape)}")
@@ -88,6 +90,10 @@ def _check(gates: torch.Tensor, c: torch.Tensor, *state_like: torch.Tensor) -> N
         raise ValueError(f"tensors on {[str(t.device) for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("gates, c and cotangents must be contiguous NCHW tensors")
+    slice_size = gates.shape[1:].numel()
+    if slice_size >= 2 ** 31:  # the kernels' offsets inside a batch slice are 32-bit
+        raise ValueError(f"a batch slice of gates holds {slice_size} elements, "
+                         f"not below 2**31")
 
 
 def _require_cuda(t: torch.Tensor) -> None:
@@ -127,12 +133,13 @@ def fused_lstm_gates_bwd(gates: torch.Tensor, c: torch.Tensor, dh: torch.Tensor,
     _require_cuda(c)
     dgates = torch.empty_like(gates)
     dc_prev = torch.empty_like(c)
+    chw = c.shape[1] * c.shape[2] * c.shape[3]
+    width = build.vector_width(chw, c, gates, dh, dc, dgates, dc_prev, elements=_PACK)
     symbol = f"convlstm_gates_bwd_{_SUFFIX[c.dtype]}"
     fn = build.function("convlstm_gates", symbol, _BWD_ARGTYPES)
     status = fn(gates.data_ptr(), c.data_ptr(), dh.data_ptr(), dc.data_ptr(),
-                dgates.data_ptr(), dc_prev.data_ptr(), c.numel(),
-                c.shape[1] * c.shape[2] * c.shape[3], c.device.index,
-                torch.cuda.current_stream(c.device).cuda_stream)
+                dgates.data_ptr(), dc_prev.data_ptr(), c.shape[0], chw, width,
+                c.device.index, torch.cuda.current_stream(c.device).cuda_stream)
     build.check(status, "convlstm_gates", symbol)
     fused_lstm_gates_bwd.launches += 1
     return dgates, dc_prev
@@ -170,10 +177,6 @@ def fused_lstm_gates(gates: torch.Tensor, c: torch.Tensor
     K1's launches.
     """
     _check(gates, c)
-    slice_size = gates.shape[1:].numel()
-    if slice_size >= 2 ** 31:  # K1's offsets inside a batch slice are 32-bit
-        raise ValueError(f"a batch slice of gates holds {slice_size} elements, "
-                         f"not below 2**31")
     if torch.is_grad_enabled() and (gates.requires_grad or c.requires_grad):
         return _FusedGates.apply(gates, c)
     return _forward(gates, c)

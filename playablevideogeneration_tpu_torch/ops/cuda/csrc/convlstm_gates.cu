@@ -42,11 +42,32 @@
 //     not aligned to a pack, or c holds under 512 KiB (the batch-1 play
 //     shapes, where more threads cover the latency better); the wrapper
 //     decides (build.vector_width) and passes 1, and the same kernel runs.
-// K2 moves 24 bytes per state element in bf16 (4 gates, c, dh, dc in; 4
-// dgates, dc_prev out), 50 MB (15 us) for the 16x128x32x32 state, and
-// reaches half of that bound (H100 80GB HBM3, 700 W) with one thread per
-// element in a grid-stride loop, neighbouring threads on neighbouring
-// addresses in all 12 streams.
+//
+// K2 on an H100.  It moves 24 bytes per state element in bf16 (4 gates, c,
+// dh and dc in; 4 gate gradients and dc_prev out): 50 MB, 15.0 us at 3.35
+// TB/s, for the 16x128x32x32 state.  It does K1's transcendentals again
+// plus 19 products and sums per element, so issue comes close to the
+// memory time as well.  Its first design walked a flat index over the whole
+// batch in a grid-stride loop, one element per thread: a 64-bit division
+// per element to find the batch row (a software routine of dozens of
+// instructions on this card), 64-bit arithmetic for all 12 addresses, and
+// 2-byte accesses in bf16 (64 bytes per warp instruction); it reached half
+// of its bound cold.  The design now follows K1's:
+//   - the same 2-D grid (blockIdx.y the batch row, blockIdx.x a chunk of
+//     the C*H*W slice; no divide, 32-bit offsets inside a slice);
+//   - a pack of kBwdPack consecutive elements per stream and thread, all
+//     seven input packs loaded before the math, one step per thread;
+//   - one element per thread where the wrapper's build.vector_width says
+//     so (sizes, alignment of any of the six pointers, launch size).
+// On an H100 80GB HBM3 at 700 W (chip_gate_bwd_packs.py, cold in HBM),
+// bf16 packs of 4 elements (8-byte accesses; 40 registers, 176.8 static
+// SASS instructions per element, no spills) beat packs of 8 (16-byte; 64
+// registers, 160.1 per element) at all four training shapes: 18.9 against
+// 20.1 us at 16x128x32x32 (79 % of the bound), 10.4-10.5 against 11.9 at
+// 16x256x16x16 and 8x128x32x32 (72 %), 7.5 against 8.1 at 8x256x16x16
+// (50 %, where the launch floor of about 2.5 us is a third of the time).
+// The likely reasons, not profiled: fewer registers keep more warps
+// resident to cover the latency, and the grid has twice the blocks.
 // The TPU kernels' 512-row tiling existed for VMEM and has no counterpart
 // here.
 
@@ -100,39 +121,57 @@ __global__ void __launch_bounds__(kFwdThreads)
   }
 }
 
+constexpr int kBwdThreads = 256;
+// Elements per thread of K2's packed path in bf16 (chip_gate_bwd_packs.py
+// builds it with 4 and with 8); in f32 a pack of 4 is 16 bytes already.
+constexpr int kBwdPackBf16 = 4;
 template <typename T>
-__global__ void gates_bwd_kernel(const T* __restrict__ gates, const T* __restrict__ c,
-                                 const T* __restrict__ dh, const T* __restrict__ dc,
-                                 T* __restrict__ dgates, T* __restrict__ dc_prev,
-                                 int64_t n, int64_t chw) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; e < n;
-       e += stride) {
-    const int64_t base = e + 3 * (e / chw) * chw;
-    const float i = sigmoid(load_f32(gates[base]));
-    const float f = sigmoid(load_f32(gates[base + chw]));
-    const float o = sigmoid(load_f32(gates[base + 2 * chw]));
-    const float g = tanhf(load_f32(gates[base + 3 * chw]));
-    const float cell = load_f32(c[e]);
-    const float tanh_c = tanhf(__fadd_rn(__fmul_rn(f, cell), __fmul_rn(i, g)));
-    const float d_h = load_f32(dh[e]);
-    const float d_new_c = __fadd_rn(
-        load_f32(dc[e]),
-        __fmul_rn(__fmul_rn(d_h, o), __fsub_rn(1.0f, __fmul_rn(tanh_c, tanh_c))));
-    dgates[base] = store_as<T>(
-        __fmul_rn(__fmul_rn(__fmul_rn(d_new_c, g), i), __fsub_rn(1.0f, i)));
-    dgates[base + chw] = store_as<T>(
-        __fmul_rn(__fmul_rn(__fmul_rn(d_new_c, cell), f), __fsub_rn(1.0f, f)));
-    dgates[base + 2 * chw] = store_as<T>(
-        __fmul_rn(__fmul_rn(__fmul_rn(d_h, tanh_c), o), __fsub_rn(1.0f, o)));
-    dgates[base + 3 * chw] = store_as<T>(
-        __fmul_rn(__fmul_rn(d_new_c, i), __fsub_rn(1.0f, __fmul_rn(g, g))));
-    dc_prev[e] = store_as<T>(__fmul_rn(d_new_c, f));
-  }
-}
+constexpr int kBwdPack = sizeof(T) == 2 ? kBwdPackBf16 : 4;
 
-int grid_for(int64_t n, int threads) {
-  return static_cast<int>(std::min<int64_t>((n + threads - 1) / threads, 1 << 20));
+// N consecutive elements of one batch slice per thread: N == 1 or a pack;
+// gridDim.y batch rows at a time.
+template <typename T, int N>
+__global__ void __launch_bounds__(kBwdThreads)
+    gates_bwd_kernel(const T* __restrict__ gates, const T* __restrict__ c,
+                     const T* __restrict__ dh, const T* __restrict__ dc,
+                     T* __restrict__ dgates, T* __restrict__ dc_prev, int64_t batch, int chw) {
+  const int r = static_cast<int>((blockIdx.x * kBwdThreads + threadIdx.x) * N);
+  if (r >= chw) return;
+  for (int64_t b = blockIdx.y; b < batch; b += gridDim.y) {
+    const int64_t g = b * 4 * chw + r;
+    const int64_t s = b * chw + r;
+    Pack<T, N> in[7];
+    in[0].load(gates + g);
+    in[1].load(gates + g + chw);
+    in[2].load(gates + g + 2 * chw);
+    in[3].load(gates + g + 3 * chw);
+    in[4].load(c + s);
+    in[5].load(dh + s);
+    in[6].load(dc + s);
+    float d_i[N], d_f[N], d_o[N], d_g[N], d_c[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float i = sigmoid(in[0][j]);
+      const float f = sigmoid(in[1][j]);
+      const float o = sigmoid(in[2][j]);
+      const float u = tanhf(in[3][j]);
+      const float cell = in[4][j];
+      const float d_h = in[5][j];
+      const float tanh_c = tanhf(__fadd_rn(__fmul_rn(f, cell), __fmul_rn(i, u)));
+      const float d_new_c = __fadd_rn(
+          in[6][j], __fmul_rn(__fmul_rn(d_h, o), __fsub_rn(1.0f, __fmul_rn(tanh_c, tanh_c))));
+      d_i[j] = __fmul_rn(__fmul_rn(__fmul_rn(d_new_c, u), i), __fsub_rn(1.0f, i));
+      d_f[j] = __fmul_rn(__fmul_rn(__fmul_rn(d_new_c, cell), f), __fsub_rn(1.0f, f));
+      d_o[j] = __fmul_rn(__fmul_rn(__fmul_rn(d_h, tanh_c), o), __fsub_rn(1.0f, o));
+      d_g[j] = __fmul_rn(__fmul_rn(d_new_c, i), __fsub_rn(1.0f, __fmul_rn(u, u)));
+      d_c[j] = __fmul_rn(d_new_c, f);
+    }
+    store_pack<N>(dgates + g, d_i);
+    store_pack<N>(dgates + g + chw, d_f);
+    store_pack<N>(dgates + g + 2 * chw, d_o);
+    store_pack<N>(dgates + g + 3 * chw, d_g);
+    store_pack<N>(dc_prev + s, d_c);
+  }
 }
 
 template <typename T>
@@ -158,17 +197,26 @@ int launch(const void* gates, const void* c, void* h_out, void* c_out, int64_t b
 
 template <typename T>
 int launch_bwd(const void* gates, const void* c, const void* dh, const void* dc,
-               void* dgates, void* dc_prev, int64_t n, int64_t chw, int device,
-               void* stream) {
+               void* dgates, void* dc_prev, int64_t batch, int64_t chw, int vec,
+               int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n == 0) return 0;
-  const int threads = 256;
-  gates_bwd_kernel<T><<<grid_for(n, threads), threads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  if (batch == 0 || chw == 0) return 0;
+  constexpr int pack = kBwdPack<T>;
+  const bool packed = vec == pack && chw % pack == 0 && aligned_for<T, pack>(gates) &&
+                      aligned_for<T, pack>(c) && aligned_for<T, pack>(dh) &&
+                      aligned_for<T, pack>(dc) && aligned_for<T, pack>(dgates) &&
+                      aligned_for<T, pack>(dc_prev);
+  if (4 * chw >= (int64_t{1} << 31) || !(packed || vec == 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned>((chw / vec + kBwdThreads - 1) / kBwdThreads),
+                  static_cast<unsigned>(std::min(batch, kMaxGrid)));
+  const auto kernel = packed ? gates_bwd_kernel<T, pack> : gates_bwd_kernel<T, 1>;
+  kernel<<<grid, kBwdThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(gates), static_cast<const T*>(c), static_cast<const T*>(dh),
-      static_cast<const T*>(dc), static_cast<T*>(dgates), static_cast<T*>(dc_prev), n,
-      chw);
+      static_cast<const T*>(dc), static_cast<T*>(dgates), static_cast<T*>(dc_prev), batch,
+      static_cast<int>(chw));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -187,16 +235,17 @@ int convlstm_gates_fwd_bf16(const void* gates, const void* c, void* h_out, void*
 }
 
 int convlstm_gates_bwd_f32(const void* gates, const void* c, const void* dh,
-                           const void* dc, void* dgates, void* dc_prev, int64_t n,
-                           int64_t chw, int device, void* stream) {
-  return launch_bwd<float>(gates, c, dh, dc, dgates, dc_prev, n, chw, device, stream);
+                           const void* dc, void* dgates, void* dc_prev, int64_t batch,
+                           int64_t chw, int vec, int device, void* stream) {
+  return launch_bwd<float>(gates, c, dh, dc, dgates, dc_prev, batch, chw, vec, device,
+                           stream);
 }
 
 int convlstm_gates_bwd_bf16(const void* gates, const void* c, const void* dh,
-                            const void* dc, void* dgates, void* dc_prev, int64_t n,
-                            int64_t chw, int device, void* stream) {
-  return launch_bwd<__nv_bfloat16>(gates, c, dh, dc, dgates, dc_prev, n, chw, device,
-                                   stream);
+                            const void* dc, void* dgates, void* dc_prev, int64_t batch,
+                            int64_t chw, int vec, int device, void* stream) {
+  return launch_bwd<__nv_bfloat16>(gates, c, dh, dc, dgates, dc_prev, batch, chw, vec,
+                                   device, stream);
 }
 
 const char* pvg_error_string(int status) {

@@ -28,6 +28,7 @@ from playablevideogeneration_tpu_torch.models.vgg import Vgg19, make_vgg
 from playablevideogeneration_tpu_torch.training import losses, schedules
 from playablevideogeneration_tpu_torch.training.train_state import TrainState
 from playablevideogeneration_tpu_torch.utils import checkpoint as ckpt_lib
+from playablevideogeneration_tpu_torch.utils import pretrained
 from playablevideogeneration_tpu_torch.utils.jax_weights import load_jax_variables
 from playablevideogeneration_tpu_torch.utils.logging import AverageMeter, Logger
 from playablevideogeneration_tpu_torch.utils.reference_checkpoint import (
@@ -170,10 +171,12 @@ def _histogram(values: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 class Trainer:
     """Training of one model on its device.
 
-    :param vgg: the perceptual loss's frozen VGG19; by default a seeded one
-        (``models.vgg.make_vgg``) in the model's dtype
+    :param vgg: the perceptual loss's frozen VGG19; by default the config's
+        converted weights (``utils.pretrained.get_vgg_variables``), or a
+        seeded one (``models.vgg.make_vgg``) when there are none, computing
+        in the model's dtype
     :param seed: seeds the noise generator (on the model's device), the
-        default VGG and the loader's shuffle
+        random VGG and the loader's shuffle
     :param dataset: the training ``VideoDataset`` that ``train_epoch``
         iterates; ``train_step`` alone needs none
     :param logger: a ``utils.logging.Logger`` (default: stdout only)
@@ -189,9 +192,13 @@ class Trainer:
         self.logger = logger if logger is not None else Logger()
         self.device = model.centroids.device
         if vgg is None:
-            self.logger.print("[trainer] WARNING: no pretrained VGG weights provided; "
-                              "perceptual loss uses random VGG19 features")
-            vgg = make_vgg(self.device, model.dtype, seed)
+            variables, found = pretrained.get_vgg_variables(config, self.logger)
+            if found:
+                vgg = load_jax_variables(Vgg19(model.dtype), variables).to(self.device).eval()
+            else:
+                self.logger.print("[trainer] WARNING: no pretrained VGG weights provided; "
+                                  "perceptual loss uses random VGG19 features")
+                vgg = make_vgg(self.device, model.dtype, seed)
         self.vgg = vgg
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.global_step = 0

@@ -1,7 +1,9 @@
 """Pretrained metric backbones: weight files and wiring.
 
 Counterpart of the parts of ``playablevideogeneration_tpu/utils/pretrained.py``
-that the offline evaluation's VGG19 and LPIPS use.  The port reads the
+that the VGG19 of the perceptual loss (the trainer's, in the model's dtype,
+and the in-training evaluator's, in f32) and the offline evaluation's VGG19
+and LPIPS use.  The port reads the
 same ``.npz`` files as the JAX package (flax names, HWIO kernels, written
 by ``tools/convert_weights.py``), so weights converted once serve both.
 

@@ -250,11 +250,14 @@ def test_vector_width_needs_whole_aligned_packs(dtype, elements, length, offset,
 
 
 def test_wrappers_reject_planes_beyond_32_bit_offsets():
-    """K1's offsets inside a batch slice, and K3's planes and offsets inside
-    a plane, are 32-bit."""
+    """K1's and K2's offsets inside a batch slice, and K3's planes and
+    offsets inside a plane, are 32-bit."""
     c = torch.empty(1, 2 ** 29, 1, 1, device="meta")
+    gates = torch.empty(1, 2 ** 31, 1, 1, device="meta")
     with pytest.raises(ValueError, match=r"2\*\*31"):
-        fused_lstm_gates(torch.empty(1, 2 ** 31, 1, 1, device="meta"), c)
+        fused_lstm_gates(gates, c)
+    with pytest.raises(ValueError, match=r"2\*\*31"):
+        fused_lstm_gates_bwd(gates, c, c, c)
     stat = torch.empty(1, device="meta")
     for x in (torch.empty(1, 1, 2 ** 16, 2 ** 15, device="meta"),
               torch.empty(2 ** 31, 1, 1, 1, device="meta")):
