@@ -1,5 +1,6 @@
 """Drives the PyTorch/CUDA port's play and training routes, its training
-loop and the entry points after training, on one NVIDIA Hopper GPU.
+loop, the entry points after training and the distribution metrics, on
+one NVIDIA Hopper GPU.
 
 Run from the repository root on a machine with an H100:
 
@@ -104,6 +105,25 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    8 frames within 1e-3 (the CPU following the card's inferred actions,
    which must match its own but for ties within 1e-4 of log-probability),
    the frame metrics of one evaluation batch within rtol 1e-4.
+12. distribution metrics, on phase 11's builder videos and test split
+   (16 + 16 sequences of 30 frames): random ``fid_inception.npz`` (with
+   its 1008-way ``fc`` head) and ``i3d.npz`` written in the converter's
+   layout (seeded apart from every other seed here) beside phase 11's
+   weights; ``cli.evaluate_dataset`` with BAIR's evaluation config and the
+   Inception Score on, at the full input sizes (299 and 224) and the
+   port's defaults (cuDNN's TF32 on): ``fid``, ``fvd``,
+   ``inception_score`` and ``inception_score_std`` finite, none of their
+   markers, no launch of the port's kernels; the extractor, the
+   classifier and the embedder hold the files' weights bit for bit;
+   ``cli.fid`` on the two datasets' statistics (written with the card's
+   extractor) prints the evaluator's FID within rtol 1e-9, and
+   ``--weights`` resolves the file; FID and FVD again with TF32 off; in
+   f32 with TF32 off, the card against the CPU: Inception's features of 4
+   frames and I3D's embeddings of 2 videos within atol 1e-4 * max(scale,
+   0.1) and rtol 1e-4, the class probabilities within 1e-5.  Prints the
+   Inception's ms per 30-frame batch, the I3D's per 16-video call, the
+   host's ``sqrtm`` seconds for the 2048 and 400-wide covariances, the
+   evaluation's seconds and peak memory.
 
 It prints JSON lines as it goes, then the kernels' summary line (``ms``,
 ``cold_ms``, ``plain_ms`` and ``bound_ms`` there are per step of the
@@ -139,6 +159,7 @@ import torch
 from playablevideogeneration_tpu_torch.cli.build_evaluation_dataset import (
     make_evaluation_dataset_builder,
 )
+from playablevideogeneration_tpu_torch.cli import fid as fid_cli
 from playablevideogeneration_tpu_torch.cli.evaluate_dataset import evaluate_dataset
 from playablevideogeneration_tpu_torch.cli.interpolate import interpolate
 from playablevideogeneration_tpu_torch.cli.play import load_play_session, scripted_rollout
@@ -162,6 +183,20 @@ from playablevideogeneration_tpu_torch.evaluation.action_sampler import (
     zero_action_variation_sampler,
 )
 from playablevideogeneration_tpu_torch.evaluation.evaluator import Evaluator, evaluation_forward
+from playablevideogeneration_tpu_torch.evaluation.metrics.fid import (
+    compute_statistics_from_frames,
+)
+from playablevideogeneration_tpu_torch.evaluation.metrics.i3d import (
+    make_fvd_embedder,
+    make_i3d,
+    random_i3d_variables,
+)
+from playablevideogeneration_tpu_torch.evaluation.metrics.inception import (
+    make_class_probability_fn,
+    make_fid_extractor,
+    make_inception,
+    random_inception_variables,
+)
 from playablevideogeneration_tpu_torch.evaluation.metrics.lpips import (
     load_lpips_linear_weights,
     make_lpips_fn,
@@ -190,6 +225,7 @@ from playablevideogeneration_tpu_torch.ops.cuda.fused_norm_act import (
 from playablevideogeneration_tpu_torch.training.trainer import Trainer
 from playablevideogeneration_tpu_torch.utils.checkpoint import STATE_FILE
 from playablevideogeneration_tpu_torch.utils.logging import Logger
+from playablevideogeneration_tpu_torch.utils import pretrained
 from playablevideogeneration_tpu_torch.utils.pretrained import (
     RANDOM_VGG_SEED,
     load_variables_npz,
@@ -374,6 +410,18 @@ BAIR_EVALUATION_CONFIG = {
                    "batching": {"batch_size": 1, "observations_count": 30, "skip_frames": 0,
                                 "observation_stacking": 1, "num_workers": 8}},
 }
+# Phase 12: the seeds of the random Inception (with its 1008-way head) and
+# I3D written as converted weights, apart from every other seed here, so
+# that backbones equal to the files' were loaded from them; the f32
+# card-vs-CPU check's 4 frames and 2 videos; and its tolerance, atol
+# BACKBONE_ATOL * max(scale, 0.1) and rtol BACKBONE_RTOL with scale the
+# CPU output's largest magnitude: 20 and 50 times tighter than
+# tests/test_backbone_parity.py's across backends (2e-3, 5e-3), since in
+# f32 without TF32 the card and the CPU differed by at most 7e-7 of the
+# scale (3.1e-6 on 4.7 for the features, 5.6e-6 on 7.6 for the embeddings).
+INCEPTION_WEIGHTS_SEED, I3D_WEIGHTS_SEED = 12, 13
+BACKBONE_PARITY_FRAMES, BACKBONE_PARITY_VIDEOS = 4, 2
+BACKBONE_ATOL, BACKBONE_RTOL = 1e-4, 1e-4
 # Cold timings rotate over distinct inputs totalling at least this much,
 # three times the 50 MB L2, so that each launch finds its inputs in HBM.
 COLD_BYTES = 150e6
@@ -1474,7 +1522,8 @@ def after_training(root: str) -> dict:
     interpolation, a reference checkpoint's import, the evaluation-dataset
     builder and the offline evaluation, at BAIR's full width in bf16, then
     the builder and the frame metrics in f32 on the card against the CPU.
-    Returns the launch counts of its first five steps."""
+    Returns the launch counts of its first five steps, the evaluation
+    config and the (test split, builder videos) dataset pair."""
     config = loop_config(root)
     datasets = loop_datasets(config)
     validation = datasets["validation"]
@@ -1645,7 +1694,7 @@ def after_training(root: str) -> dict:
     # builder batch of 2 x 8 frames, and one evaluation batch's metrics.
     after_training_parity(config, eval_config, source.state_dict(), test_videos, pair)
     emit(phase="after_training", launches=totals)
-    return totals
+    return totals, eval_config, pair
 
 
 def after_training_parity(config: dict, eval_config: dict, state: dict, test_videos: list,
@@ -1737,6 +1786,235 @@ def after_training_parity(config: dict, eval_config: dict, state: dict, test_vid
         require(errors[key] <= 1e-4, f"f32 {key} on the card differs from the CPU: {errors[key]}")
     emit(phase="after_metric_parity", dtype="f32", tf32=False, frames=EVAL_FRAMES,
          max_rel_err=errors, tolerance=1e-4)
+
+
+class DistributionRecorder:
+    """Within the block: the backbones that ``evaluation_backbones`` builds
+    (``backbones``), each call of the FID extractor, the class-probability
+    function and the FVD embedder timed on the host's clock (each ends in a
+    readback, so the time holds the input's copy to the card, the device's
+    work and the readback), and each ``scipy.linalg.sqrtm`` with its
+    matrix's size."""
+
+    def __enter__(self):
+        import scipy.linalg
+
+        self.backbones, self.calls, self.sqrtm = {}, {}, []
+        self._saved = pretrained.evaluation_backbones, scipy.linalg.sqrtm
+        find, sqrtm = self._saved
+        recorder = self
+
+        def timed(name, fn):
+            def call(x):
+                start = time.perf_counter()
+                out = fn(x)
+                recorder.calls.setdefault(name, []).append(
+                    (len(x), (time.perf_counter() - start) * 1e3))
+                return out
+            call.__dict__.update(fn.__dict__)
+            return call
+
+        def recorded_backbones(*args, **kwargs):
+            found = find(*args, **kwargs)
+            recorder.backbones = dict(found)
+            for name in ("fid_extractor", "class_probability_fn", "fvd_embedder"):
+                if found[name] is not None:
+                    found[name] = timed(name, found[name])
+            return found
+
+        def timed_sqrtm(a, *args, **kwargs):
+            start = time.perf_counter()
+            out = sqrtm(a, *args, **kwargs)
+            recorder.sqrtm.append((a.shape[0], time.perf_counter() - start))
+            return out
+
+        pretrained.evaluation_backbones = recorded_backbones
+        scipy.linalg.sqrtm = timed_sqrtm
+        return self
+
+    def __exit__(self, *exc_info):
+        import scipy.linalg
+
+        pretrained.evaluation_backbones, scipy.linalg.sqrtm = self._saved
+
+
+def require_same_weights(model: torch.nn.Module, want: torch.nn.Module, what: str) -> int:
+    """Every tensor of ``model`` equals ``want``'s bit for bit; returns the
+    number of tensors."""
+    got, expected = model.state_dict(), want.state_dict()
+    require(list(got) == list(expected), f"{what}: the tensors differ")
+    for key, value in expected.items():
+        require(torch.equal(got[key].cpu(), value.cpu()), f"{what}: {key} is not the file's")
+    return len(expected)
+
+
+def backbone_error(got: np.ndarray, want: np.ndarray, what: str, atol=None,
+                   rtol: float = BACKBONE_RTOL) -> dict:
+    """The card's output against the CPU's, by default within atol
+    BACKBONE_ATOL * max(scale, 0.1) and rtol BACKBONE_RTOL; returns the
+    largest absolute error and its ratio to the allowed absolute error."""
+    scale = float(np.abs(want).max())
+    require(got.shape == want.shape and np.isfinite(got).all() and scale > 0,
+            f"{what}: shape {got.shape}, scale {scale}")
+    if atol is None:
+        atol = BACKBONE_ATOL * max(scale, 0.1)
+    err = float(np.abs(got - want).max())
+    require((np.abs(got - want) <= atol + rtol * np.abs(want)).all(),
+            f"{what} on the card differs from the CPU by {err} (scale {scale}, atol {atol}, "
+            f"rtol {rtol})")
+    return dict(max_abs_err=err, scale=scale, atol=atol, rtol=rtol, err_over_atol=err / atol)
+
+
+def fid_printed(argv: list) -> float:
+    """``cli.fid.main(argv)``'s distance, read from what it prints."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        fid_cli.main(argv)
+    printed = out.getvalue()
+    require(printed.startswith("FID: "), printed)
+    return float(printed.split("FID: ")[1])
+
+
+def distribution_metrics(root: str, eval_config: dict, pair: tuple) -> None:
+    """Phase 12, on phase 11's dataset pair (2 x 8 builder videos of 30
+    frames against the test split) and BAIR's evaluation config with the
+    Inception Score on: random ``fid_inception.npz`` (with its 1008-way
+    ``fc``) and ``i3d.npz`` in the converter's layout beside phase 11's
+    VGG19 and LPIPS files; ``cli.evaluate_dataset`` at the full input
+    sizes (299, 224) with the port's defaults (cuDNN's TF32 on) gives FID
+    and Inception Score over 480 frames and FVD over 16 videos; the
+    backbones hold the files' weights bit for bit; ``cli.fid`` on the two
+    datasets' statistics prints the evaluator's FID; FID and FVD again
+    with TF32 off; and in f32 with TF32 off, the card against the CPU:
+    Inception's features and class probabilities of 4 frames, I3D's
+    embeddings of 2 videos.  The path runs no kernel of the port."""
+    torch.backends.cudnn.allow_tf32 = True  # the port's defaults, which phase 11 turned off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    weights = eval_config["tpu"]["pretrained_weights_dir"]
+    paths = {"fid_inception": os.path.join(weights, "fid_inception.npz"),
+             "i3d": os.path.join(weights, "i3d.npz")}
+    save_variables_npz(random_inception_variables(INCEPTION_WEIGHTS_SEED), paths["fid_inception"])
+    save_variables_npz(random_i3d_variables(I3D_WEIGHTS_SEED), paths["i3d"])
+    files = {name: load_variables_npz(path) for name, path in paths.items()}
+    config = copy.deepcopy(eval_config)
+    config["evaluation"]["compute_inception_score"] = True
+    config["logging"]["output_root"] = os.path.join(root, "distribution_results")
+    EvaluationConfiguration(config=config).check_config(check_data_root=False)
+
+    # 1. The evaluation with every backbone, at the port's defaults.
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    with DistributionRecorder() as recorder:
+        start = time.perf_counter()
+        metrics = evaluate_dataset(config, device="cuda", datasets=pair)
+        evaluation_s = time.perf_counter() - start
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = read_launches()
+    require(not any(launches.values()), f"the distribution metrics launched {launches}")
+    for key in ("fid", "fvd", "inception_score", "inception_score_std"):
+        require(key in metrics and math.isfinite(metrics[key]), f"{key}: {metrics.get(key)}")
+    markers = [k for k in ("fid_unavailable", "fvd_unavailable", "inception_score_unavailable")
+               if k in metrics]
+    require(not markers, f"markers with every backbone present: {markers}")
+    frames = len(pair[0]) * EVAL_FRAMES
+    calls = recorder.calls
+    require([n for n, _ in calls["fid_extractor"]] == [EVAL_FRAMES] * (2 * len(pair[0]))
+            and [n for n, _ in calls["class_probability_fn"]] == [EVAL_FRAMES] * len(pair[1])
+            and [n for n, _ in calls["fvd_embedder"]] == [len(pair[0]), len(pair[1])],
+            f"backbone calls {({k: [n for n, _ in v] for k, v in calls.items()})}")
+    sqrtm = {}
+    for size, seconds in recorder.sqrtm:
+        sqrtm.setdefault(str(size), []).append(seconds)
+    require(sorted(sqrtm) == ["2048", "400"], f"sqrtm sizes {sorted(sqrtm)}")
+
+    # 2. The backbones are the files' weights, bit for bit.
+    backbones = recorder.backbones
+    tensors = {
+        "inception": require_same_weights(backbones["fid_extractor"].model, make_inception(
+            files["fid_inception"], "cpu"), "the FID extractor"),
+        "inception_score": require_same_weights(
+            backbones["class_probability_fn"].model,
+            make_inception(files["fid_inception"], "cpu"), "the Inception Score's backbone"),
+        "i3d": require_same_weights(backbones["fvd_embedder"].model,
+                                    make_i3d(files["i3d"], "cpu"), "the FVD embedder")}
+    head = backbones["class_probability_fn"].head
+    fc = files["fid_inception"]["params"]["fc"]
+    require(torch.equal(head.weight.cpu(), torch.from_numpy(fc["kernel"].T.copy()))
+            and torch.equal(head.bias.cpu(), torch.from_numpy(fc["bias"])),
+            "the Inception Score's head is not the file's")
+    emit(phase="distribution_evaluation", frames=frames, videos=len(pair[0]),
+         fid=metrics["fid"], fvd=metrics["fvd"], inception_score=metrics["inception_score"],
+         inception_score_std=metrics["inception_score_std"], launches=launches,
+         bit_exact_tensors=tensors, weights_seeds=[INCEPTION_WEIGHTS_SEED, I3D_WEIGHTS_SEED],
+         seconds=evaluation_s, peak_memory_gib=peak_gib, allocated_before_gib=base_gib,
+         inception_ms_per_batch=statistics.median(ms for _, ms in calls["fid_extractor"]),
+         inception_ms_first=calls["fid_extractor"][0][1],
+         class_probability_ms_per_batch=statistics.median(
+             ms for _, ms in calls["class_probability_fn"]),
+         i3d_ms_per_call=[ms for _, ms in calls["fvd_embedder"]],
+         backbone_s=sum(ms for v in calls.values() for _, ms in v) / 1e3,
+         sqrtm_s=sqrtm, tf32=True, card=nvidia_smi())
+
+    # 3. cli.fid on the two datasets' statistics, written with the card's
+    # extractor, against the evaluator's FID; --weights resolves the file.
+    evaluator = DatasetEvaluatorBair(config, Logger(), *pair, device="cuda",
+                                     fid_extractor=backbones["fid_extractor"],
+                                     fvd_embedder=backbones["fvd_embedder"])
+    statistics_paths = []
+    for name, loader in (("reference", evaluator.reference_dataloader),
+                         ("generated", evaluator.generated_dataloader)):
+        mu, sigma = compute_statistics_from_frames(backbones["fid_extractor"],
+                                                   evaluator._iter_frames(loader))
+        statistics_paths.append(os.path.join(root, f"{name}_statistics.npz"))
+        np.savez(statistics_paths[-1], mu=mu, sigma=sigma)
+    cli_fid = fid_printed(statistics_paths)
+    cli_rel = abs(cli_fid - metrics["fid"]) / abs(metrics["fid"])
+    require(cli_rel <= 1e-9, f"cli.fid printed {cli_fid}, the evaluator {metrics['fid']}")
+    found = []
+    get_fid_extractor = pretrained.get_fid_extractor
+
+    def recorded_get(config, **kwargs):
+        found.append(pretrained.find_weights(config, "fid_inception"))
+        return get_fid_extractor(config, **kwargs)
+
+    pretrained.get_fid_extractor = recorded_get
+    try:
+        weights_fid = fid_printed(statistics_paths + ["--weights", paths["fid_inception"],
+                                                      "--device", "cuda"])
+    finally:
+        pretrained.get_fid_extractor = get_fid_extractor
+    require(found == [paths["fid_inception"]] and weights_fid == cli_fid,
+            f"--weights resolved {found}, printed {weights_fid}")
+
+    # 4. FID and FVD again with TF32 off.
+    torch.backends.cudnn.allow_tf32 = False
+    fid_off, fvd_off = evaluator._compute_fid(), evaluator._compute_fvd()
+    emit(phase="distribution_cli_and_tf32", cli_fid=cli_fid, cli_fid_rel_err=cli_rel,
+         weights_resolved=True, fid_tf32_on=metrics["fid"], fid_tf32_off=fid_off,
+         fid_rel_change=fid_off / metrics["fid"] - 1, fvd_tf32_on=metrics["fvd"],
+         fvd_tf32_off=fvd_off, fvd_rel_change=fvd_off / metrics["fvd"] - 1)
+
+    # 5. f32 with TF32 off: the card's backbones against the CPU's.
+    sample = collate([pair[0][0], pair[1][0]]).observations  # (2, 30, 256, 256, 3)
+    images = sample[0, :BACKBONE_PARITY_FRAMES]
+    videos = sample[:BACKBONE_PARITY_VIDEOS]
+    cpu = {"features": make_fid_extractor(files["fid_inception"], "cpu")(images),
+           "probabilities": make_class_probability_fn(files["fid_inception"], "cpu")(images),
+           "embeddings": make_fvd_embedder(files["i3d"], "cpu")(videos)}
+    card = {"features": backbones["fid_extractor"](images),
+            "probabilities": backbones["class_probability_fn"](images),
+            "embeddings": backbones["fvd_embedder"](videos)}
+    # The probabilities (about 1/1008 each) within 1e-5, as the CPU tests
+    # hold them to the JAX package's.
+    errors = {name: backbone_error(card[name], cpu[name], name,
+                                   **(dict(atol=1e-5, rtol=0.0) if name == "probabilities"
+                                      else {}))
+              for name in cpu}
+    torch.backends.cudnn.allow_tf32 = True
+    emit(phase="distribution_parity", dtype="f32", tf32=False, frames=BACKBONE_PARITY_FRAMES,
+         videos=list(videos.shape[:2]), errors=errors)
 
 
 def kernel_group(name: str) -> str:
@@ -1876,7 +2154,8 @@ def main() -> None:
 
     with tempfile.TemporaryDirectory() as root:
         loop_launches = train_loop(root)
-        after_launches = after_training(root)
+        after_launches, eval_config, pair = after_training(root)
+        distribution_metrics(root, eval_config, pair)
 
     kernels = [dict(name=name, route="cuda",
                     source=f"playablevideogeneration_tpu_torch/ops/cuda/csrc/{source}.cu",

@@ -8,10 +8,10 @@ weights, LPIPS, on the device in f32 without gradients and read back once;
 then, on the host, the detections, the movements between successful
 detections paired with the generated frames' inferred actions.  At the
 end: per-position statistics, the detection metric, the action-space
-statistics and SVM accuracies, the density plots, and the markers of what
-could not be computed (``*_unavailable``, ``vgg_sim_note``).  FID, FVD and
-the Inception Score are not ported yet (ROADMAP.md, Queue 1 item 9): they
-are always recorded as unavailable.
+statistics and SVM accuracies, the density plots; over both datasets the
+FID, the FVD and, when ``evaluation.compute_inception_score`` is set, the
+generated frames' Inception Score; and the markers of what could not be
+computed (``*_unavailable``, ``vgg_sim_note``).
 
 Three protocols: generic (tennis: player positions from the detector),
 Breakout (platform positions from a colour scan) and BAIR (arm states
@@ -36,6 +36,9 @@ from playablevideogeneration_tpu_torch.evaluation.metrics.detection import (
     detection_metric,
     make_detector,
 )
+from playablevideogeneration_tpu_torch.evaluation.metrics.fid import compute_fid
+from playablevideogeneration_tpu_torch.evaluation.metrics.fvd import compute_fvd
+from playablevideogeneration_tpu_torch.evaluation.metrics.inception import inception_score
 from playablevideogeneration_tpu_torch.utils.device import DeviceLike, resolve_device
 from playablevideogeneration_tpu_torch.utils.logging import Logger
 from playablevideogeneration_tpu_torch.utils.pretrained import make_metric_vgg
@@ -84,6 +87,15 @@ class DatasetEvaluator:
         (``metrics.lpips.make_lpips_fn``); None records ``lpips_unavailable``
     :param detector: the movement detector; by default the config's
         ``evaluation.detector``
+    :param fid_extractor: (N, H, W, 3) frames -> (N, D) numpy activations
+        (``metrics.inception.make_fid_extractor``); None records
+        ``fid_unavailable``
+    :param fvd_embedder: (N, T, H, W, 3) videos -> (N, D) numpy embeddings
+        (``metrics.i3d.make_fvd_embedder``); None records ``fvd_unavailable``
+    :param class_probability_fn: (N, H, W, 3) frames -> (N, classes) numpy
+        probabilities (``metrics.inception.make_class_probability_fn``),
+        used when ``evaluation.compute_inception_score`` is set; None then
+        records ``inception_score_unavailable``
     :param device: where the frame metrics run (default: cuda)
     """
 
@@ -94,8 +106,9 @@ class DatasetEvaluator:
 
     def __init__(self, config: dict, logger: Logger, reference_dataset, generated_dataset,
                  vgg_variables: Optional[Dict] = None, lpips_fn=None,
+                 fid_extractor=None, fvd_embedder=None,
                  detector: Optional[TennisPlayerDetector] = None,
-                 device: DeviceLike = "cuda"):
+                 class_probability_fn=None, device: DeviceLike = "cuda"):
         self.config = config
         self.logger = logger
         self.device = resolve_device(device)
@@ -112,6 +125,9 @@ class DatasetEvaluator:
         self._vgg_pretrained = vgg_variables is not None
         self.vgg = make_metric_vgg(vgg_variables, self.device)
         self.lpips_fn = lpips_fn
+        self.fid_extractor = fid_extractor
+        self.fvd_embedder = fvd_embedder
+        self.class_probability_fn = class_probability_fn
         self.compute_is = bool(config["evaluation"].get("compute_inception_score", False))
         self.detector = make_detector(config) if detector is None else detector
 
@@ -212,11 +228,42 @@ class DatasetEvaluator:
         else:
             results["action_space_unavailable"] = "no (movement, action) pairs could be extracted"
 
-        results["fid_unavailable"] = "no FID Inception weights provided"
-        results["fvd_unavailable"] = "no FVD I3D weights provided"
+        if self.fid_extractor is not None:
+            self.logger.print("- Computing FID score")
+            results["fid"] = self._compute_fid()
+        else:
+            results["fid_unavailable"] = "no FID Inception weights provided"
+        if self.fvd_embedder is not None:
+            self.logger.print("- Computing FVD score")
+            results["fvd"] = self._compute_fvd()
+        else:
+            results["fvd_unavailable"] = "no FVD I3D weights provided"
         if self.compute_is:
-            results["inception_score_unavailable"] = "no Inception classifier head available"
+            if self.class_probability_fn is not None:
+                self.logger.print("- Computing Inception Score")
+                probs = np.concatenate([self.class_probability_fn(frames) for frames in
+                                        self._iter_frames(self.generated_dataloader)], axis=0)
+                results["inception_score"], results["inception_score_std"] = \
+                    inception_score(probs)
+            else:
+                results["inception_score_unavailable"] = "no Inception classifier head available"
         return results
+
+    def _iter_frames(self, dataloader):
+        """The loader's batches as (B*T, H, W, 3) frames."""
+        for batch in dataloader:
+            obs = batch.observations
+            yield obs.reshape((-1,) + obs.shape[2:])
+
+    def _compute_fid(self) -> float:
+        """The FID over every frame of both datasets."""
+        return compute_fid(self.fid_extractor, self._iter_frames(self.reference_dataloader),
+                           self._iter_frames(self.generated_dataloader))
+
+    def _compute_fvd(self) -> float:
+        return compute_fvd(self.fvd_embedder,
+                           (b.observations for b in self.reference_dataloader),
+                           (b.observations for b in self.generated_dataloader))
 
     def plot_kwargs(self) -> dict:
         """The protocol's density-plot limits and orientation."""

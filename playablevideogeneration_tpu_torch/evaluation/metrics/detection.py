@@ -13,8 +13,8 @@ host-side numpy and scipy:
   the average centre distance.
 
 The Faster R-CNN backend (``evaluation.detector: frcnn``) is not ported
-yet (ROADMAP.md, Queue 1 item 9): asking for it raises instead of
-degrading.
+yet (ROADMAP.md, Queue 1, "Faster R-CNN tennis detector"): asking for it
+raises instead of degrading.
 """
 from __future__ import annotations
 
@@ -217,7 +217,8 @@ def make_detector(config) -> TennisPlayerDetector:
         raise NotImplementedError(
             "evaluation.detector 'frcnn' (the Faster R-CNN backend, "
             "evaluation/metrics/frcnn.py) is not ported to PyTorch yet: ROADMAP.md, "
-            "Queue 1 item 9; use 'blob' or a '<module>:<callable>' proposer")
+            "Queue 1, 'Faster R-CNN tennis detector'; use 'blob' or a "
+            "'<module>:<callable>' proposer")
     module_name, _, attr = str(spec).partition(":")
     import importlib
 

@@ -102,11 +102,15 @@ def vgg_cosine_similarity(vgg: Vgg19, reference: torch.Tensor,
 
 def frechet_distance(mu1: np.ndarray, sigma1: np.ndarray, mu2: np.ndarray, sigma2: np.ndarray,
                      eps: float = 1e-6) -> float:
-    """Fréchet distance between two Gaussians, through scipy's sqrtm."""
+    """Fréchet distance between two Gaussians, through scipy's sqrtm.
+
+    ``sqrtm`` is called without ``disp``: newer scipy releases removed the
+    argument (the card's machine has one), and its result does not depend
+    on it."""
     from scipy import linalg
 
     diff = mu1 - mu2
-    covmean, _ = linalg.sqrtm(sigma1.dot(sigma2), disp=False)
+    covmean = linalg.sqrtm(sigma1.dot(sigma2))
     if not np.isfinite(covmean).all():
         offset = np.eye(sigma1.shape[0]) * eps
         covmean = linalg.sqrtm((sigma1 + offset).dot(sigma2 + offset))

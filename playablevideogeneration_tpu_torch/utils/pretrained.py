@@ -1,20 +1,18 @@
 """Pretrained metric backbones: weight files and wiring.
 
-Counterpart of the parts of ``playablevideogeneration_tpu/utils/pretrained.py``
-that the VGG19 of the perceptual loss (the trainer's, in the model's dtype,
-and the in-training evaluator's, in f32) and the offline evaluation's VGG19
-and LPIPS use.  The port reads the
-same ``.npz`` files as the JAX package (flax names, HWIO kernels, written
-by ``tools/convert_weights.py``), so weights converted once serve both.
+Counterpart of ``playablevideogeneration_tpu/utils/pretrained.py``: the
+VGG19 of the perceptual loss (the trainer's, in the model's dtype, and the
+in-training evaluator's, in f32) and the offline evaluation's backbones:
+VGG19 and LPIPS, the FID Inception, its classifier head for the Inception
+Score, and the FVD I3D.  The port reads the same ``.npz`` files as the JAX
+package (flax names, HWIO kernels, written by
+``tools/convert_weights.py``), so weights converted once serve both.
 
 Each backbone's file is, in order: the config's
 ``tpu.pretrained_weights.<name>``; ``<dir>/<canonical file name>`` with
 ``<dir>`` the config's ``tpu.pretrained_weights_dir`` or the environment's
 ``PVG_PRETRAINED_WEIGHTS``; otherwise none, and the evaluator records a
 ``*_unavailable`` marker (VGG19 falls back to seeded random weights).
-The FID Inception, FVD I3D and Inception Score backbones are not ported
-yet (ROADMAP.md, Queue 1 item 9): when their weights are found, asking for
-them raises.
 """
 from __future__ import annotations
 
@@ -126,24 +124,68 @@ def get_lpips_fn(config, logger=None, vgg_variables: Optional[Dict] = None,
     return lpips_lib.make_lpips_fn(make_metric_vgg(vgg_variables, device), heads)
 
 
-def _refuse_unported(config) -> None:
-    """Raises when weights for a backbone the port lacks are found."""
-    unported = {"fid_inception": "FID Inception (evaluation/metrics/inception.py, fid.py)",
-                "i3d": "FVD I3D (evaluation/metrics/i3d.py, fvd.py)"}
-    for name, what in unported.items():
-        path = find_weights(config, name)
-        if path is not None:
-            raise NotImplementedError(
-                f"{what} is not ported to PyTorch yet (ROADMAP.md, Queue 1 item 9), but its "
-                f"weights were found at {path}; remove them from the configuration to "
-                f"evaluate without it")
+def _inception_variables(config, logger=None) -> Optional[Dict]:
+    path = find_weights(config, "fid_inception")
+    if path is None:
+        return None
+    if logger is not None:
+        logger.print(f"- Loading FID InceptionV3 weights from {path}")
+    return load_variables_npz(path)
+
+
+def get_fid_extractor(config, logger=None, variables: Optional[Dict] = None,
+                      device: DeviceLike = "cuda") -> Optional[Any]:
+    """The FID's pool3 extractor on ``device``, or None without weights."""
+    from playablevideogeneration_tpu_torch.evaluation.metrics import inception
+
+    if variables is None:
+        variables = _inception_variables(config, logger)
+    if variables is None:
+        return None
+    return inception.make_fid_extractor(variables, device)
+
+
+def get_class_probability_fn(config, logger=None, variables: Optional[Dict] = None,
+                             device: DeviceLike = "cuda") -> Optional[Any]:
+    """The Inception classifier (for the Inception Score) on ``device``,
+    when the FID checkpoint carries its ``fc`` head
+    (``tools/convert_weights.py`` keeps it), else None."""
+    from playablevideogeneration_tpu_torch.evaluation.metrics import inception
+
+    if variables is None:
+        variables = _inception_variables(config, logger)
+    if variables is None or "fc" not in variables.get("params", {}):
+        return None
+    return inception.make_class_probability_fn(variables, device)
+
+
+def get_fvd_embedder(config, logger=None, device: DeviceLike = "cuda") -> Optional[Any]:
+    """The FVD's I3D embedder on ``device``, or None without weights."""
+    from playablevideogeneration_tpu_torch.evaluation.metrics import i3d
+
+    path = find_weights(config, "i3d")
+    if path is None:
+        return None
+    if logger is not None:
+        logger.print(f"- Loading FVD I3D weights from {path}")
+    return i3d.make_fvd_embedder(load_variables_npz(path), device)
 
 
 def evaluation_backbones(config, logger=None, device: DeviceLike = "cuda") -> Dict[str, Any]:
     """The offline evaluation's backbones, found from the config, as keyword
-    arguments of the dataset evaluators."""
-    _refuse_unported(config)
+    arguments of the dataset evaluators; the Inception Score's classifier
+    only when ``evaluation.compute_inception_score`` is set."""
     vgg_variables, vgg_pretrained = get_vgg_variables(config, logger)
-    return dict(vgg_variables=vgg_variables if vgg_pretrained else None,
-                lpips_fn=get_lpips_fn(config, logger, vgg_variables=vgg_variables,
-                                      vgg_pretrained=vgg_pretrained, device=device))
+    inception_variables = _inception_variables(config, logger)
+    want_is = bool(config.get("evaluation", {}).get("compute_inception_score", False))
+    return dict(
+        vgg_variables=vgg_variables if vgg_pretrained else None,
+        lpips_fn=get_lpips_fn(config, logger, vgg_variables=vgg_variables,
+                              vgg_pretrained=vgg_pretrained, device=device),
+        fid_extractor=get_fid_extractor(config, logger, variables=inception_variables,
+                                        device=device),
+        fvd_embedder=get_fvd_embedder(config, logger, device=device),
+        class_probability_fn=(get_class_probability_fn(
+            config, logger, variables=inception_variables, device=device)
+            if want_is else None),
+    )

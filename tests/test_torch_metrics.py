@@ -7,6 +7,9 @@ tests/test_dataset_evaluation.py that these modules cover.
 Inputs are seeded [0, 1] frames.  Frame metrics, VGG similarity and LPIPS
 agree within rtol 1e-5 (the VGG19 tree is carried across, since the two
 packages' random inits differ); the host-side numpy metrics are exact.
+The FID, FVD and Inception Score backbones are held against the JAX
+package in tests/test_torch_inception.py, test_torch_i3d.py and
+test_torch_fid_fvd.py; here, that the evaluation finds them.
 """
 import os
 import subprocess
@@ -146,13 +149,37 @@ def test_pretrained_files_round_trip_and_resolve(vgg_variables, tmp_path, monkey
 
 
 @pytest.mark.parametrize("backbone", ["fid_inception", "i3d"])
-def test_unported_backbones_raise_when_their_weights_are_found(tmp_path, backbone):
-    path = tmp_path / pretrained.WEIGHT_FILES[backbone]
-    np.savez(path, x=np.zeros(1))
+def test_backbones_load_when_their_weights_are_found(tmp_path, backbone):
+    """One converted file in ``tpu.pretrained_weights_dir``: the port builds
+    the same backbones as the JAX package's ``evaluation_backbones`` (the
+    FID extractor and the Inception Score's classifier from
+    ``fid_inception.npz``, the FVD embedder from ``i3d.npz``), holding the
+    file's weights."""
+    from playablevideogeneration_tpu_torch.evaluation.metrics import i3d, inception
+
+    variables = (inception.random_inception_variables(8) if backbone == "fid_inception"
+                 else i3d.random_i3d_variables(9))
+    jax_pretrained.save_variables_npz(variables, str(tmp_path / pretrained.WEIGHT_FILES[backbone]))
     config = {"tpu": {"pretrained_weights_dir": str(tmp_path)},
               "evaluation": {"compute_inception_score": True}}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pretrained.evaluation_backbones(config, device="cpu")
+    got = pretrained.evaluation_backbones(config, device="cpu")
+    want = jax_pretrained.evaluation_backbones(config)
+    assert sorted(got) == sorted(want)
+    assert {k for k, v in got.items() if v is not None} == \
+        {k for k, v in want.items() if v is not None}
+    if backbone == "fid_inception":
+        assert got["fid_extractor"] is not None and got["class_probability_fn"] is not None
+        conv = got["fid_extractor"].model.Mixed_7c.branch_pool.conv.weight
+        kernel = variables["params"]["Mixed_7c"]["branch_pool"]["conv"]["kernel"]
+        np.testing.assert_array_equal(conv.numpy(), kernel.transpose(3, 2, 0, 1))
+        stats = variables["batch_stats"]["Mixed_5b"]["branch_pool"]["bn"]["var"]
+        np.testing.assert_array_equal(
+            got["class_probability_fn"].model.Mixed_5b.branch_pool.bn.running_var.numpy(), stats)
+    else:
+        assert got["fvd_embedder"] is not None and got["fid_extractor"] is None
+        conv = got["fvd_embedder"].model.Conv3d_1a_7x7.conv3d.weight
+        kernel = variables["params"]["Conv3d_1a_7x7"]["conv3d"]["kernel"]
+        np.testing.assert_array_equal(conv.numpy(), kernel.transpose(4, 3, 0, 1, 2))
 
 
 def test_frechet_distance_matches_jax():
@@ -164,6 +191,21 @@ def test_frechet_distance_matches_jax():
     assert abs(frame_metrics.frechet_distance(mu, sigma, mu, sigma)) < 1e-6
     shift = np.eye(6)[0]
     assert abs(frame_metrics.frechet_distance(mu, sigma, mu + shift, sigma) - 1.0) < 1e-6
+
+
+def test_frechet_distance_runs_on_scipy_without_disp(monkeypatch):
+    """scipy releases after 1.17 removed ``sqrtm``'s ``disp`` argument: the
+    port's distance must not pass it, and still equal the JAX package's
+    (which passes ``disp=False``)."""
+    from scipy import linalg
+
+    rng = np.random.default_rng(11)
+    x, y = rng.normal(size=(40, 5)), rng.normal(0.2, 1.1, size=(40, 5))
+    args = (x.mean(0), np.cov(x, rowvar=False), y.mean(0), np.cov(y, rowvar=False))
+    want = jax_frame.frechet_distance(*args)
+    sqrtm = linalg.sqrtm
+    monkeypatch.setattr(linalg, "sqrtm", lambda a: sqrtm(a))
+    assert frame_metrics.frechet_distance(*args) == want
 
 
 # --------------------------------------------------------------------- #

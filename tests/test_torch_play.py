@@ -256,5 +256,8 @@ def test_port_imports_no_jax():
         "utils.pretrained", "evaluation.builder", "evaluation.dataset_evaluator",
         "evaluation.metrics.frame_metrics", "evaluation.metrics.lpips",
         "evaluation.metrics.detection", "evaluation.metrics.action_metrics",
-        "evaluation.plotting.density_plots")}
-    assert covered <= imported and len(imported) >= 46
+        "evaluation.plotting.density_plots",
+        # the distribution metrics: FID, FVD, Inception Score and the FID CLI
+        "cli.fid", "evaluation.metrics.inception", "evaluation.metrics.i3d",
+        "evaluation.metrics.fid", "evaluation.metrics.fvd")}
+    assert covered <= imported and len(imported) >= 51

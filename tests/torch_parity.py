@@ -140,3 +140,44 @@ def to_port_layout(name: str, value) -> np.ndarray:
     """A JAX ``ModelOutput`` field's value in the port's layout."""
     value = np.asarray(value)
     return value.transpose(0, 1, 4, 2, 3) if name in IMAGE_FIELDS else value
+
+
+# --------------------------------------------------------------------- #
+# The metric backbones (FID Inception, FVD I3D)                         #
+# --------------------------------------------------------------------- #
+
+
+def assert_tap_close(got: np.ndarray, want: np.ndarray, name: str) -> None:
+    """``tests/test_backbone_parity.py``'s tolerance across backends."""
+    assert got.shape == want.shape, name
+    scale = float(np.abs(want).max())
+    assert np.isfinite(scale) and scale > 1e-3, name
+    np.testing.assert_allclose(got, want, atol=2e-3 * max(scale, 0.1), rtol=5e-3, err_msg=name)
+
+
+def jax_taps(model, variables, x):
+    """The JAX model's output and its ``Mixed_*`` blocks' outputs."""
+    out, state = model.apply(variables, x, capture_intermediates=lambda mdl, method: (
+        method == "__call__" and mdl.name is not None and mdl.name.startswith("Mixed")))
+    taps = {name: np.asarray(v["__call__"][0]) for name, v in state["intermediates"].items()}
+    return np.asarray(out), taps
+
+
+def port_taps(model, x: torch.Tensor, channels_last):
+    """The port model's output and its ``Mixed_*`` children's outputs, in
+    the JAX layout (``channels_last`` moves dim 1 last)."""
+    taps, hooks = {}, []
+    for name, child in model.named_children():
+        if name.startswith("Mixed"):
+            hooks.append(child.register_forward_hook(
+                lambda m, i, o, name=name: taps.__setitem__(name, channels_last(o))))
+    with torch.no_grad():
+        out = model(x).numpy()
+    for hook in hooks:
+        hook.remove()
+    return out, taps
+
+
+def shapes_by_path(tree) -> dict:
+    return {jax.tree_util.keystr(path): tuple(leaf.shape)
+            for path, leaf in jax.tree_util.tree_leaves_with_path(tree)}
