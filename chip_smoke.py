@@ -1,6 +1,6 @@
 """Drives the PyTorch/CUDA port's play and training routes, its training
-loop, the entry points after training and the distribution metrics, on
-one NVIDIA Hopper GPU.
+loop, the entry points after training, the distribution metrics, the
+convergence soak and the Faster R-CNN detector, on one NVIDIA Hopper GPU.
 
 Run from the repository root on a machine with an H100:
 
@@ -124,12 +124,38 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    Inception's ms per 30-frame batch, the I3D's per 16-video call, the
    host's ``sqrtm`` seconds for the 2048 and 400-wide covariances, the
    evaluation's seconds and peak memory.
+13. convergence soak: ``tools.convergence_soak`` in bf16 on
+   docs/CONVERGENCE.md's breakout_fixed_row setting (3 actions, 1-D
+   direction latent, the square's row pinned; 48x48 frames, hidden 32,
+   batch 16, 6 frames, in-memory videos) cut to 40 pretraining and 160
+   full-phase steps with an evaluation every 100 and no example images,
+   run twice in one root (``--stop-at 100``, then resumed to 200): every
+   logged loss finite, ``eval_curve.jsonl`` and ``summary.json`` written,
+   the second run starting at step 101; K1 and K2 15 times per train step
+   and K3 never, K1 15 and K3 86 times per evaluation batch of 8 x 6
+   frames; K1, K2 and K3 bit for bit against their plain versions at every
+   (shape, dtype) the soak gave them.  Prints the ms per train step
+   (median and range) and per evaluation; the accuracy target is not
+   required.
+14. detector: a random ``frcnn.npz`` in the converter's layout (seeded
+   apart from every other seed here, the person bias raised) resolved by
+   ``make_detector`` for ``evaluation.detector: frcnn``: the weights the
+   file's bit for bit; 16 tennis-shaped 96x256 frames at the default
+   800/1333 transform (500x1333, padded to 512x1344) give static, finite
+   outputs and person boxes above 0.8; ms per frame of the backbone and
+   of the box stages, kernel launches and host copies per frame, peak
+   memory, person boxes with TF32 on and off; then f32 with TF32 off, the
+   card against the CPU at a 32/86 transform: the FPN levels within atol
+   1e-4 * max(scale, 0.1) and rtol 1e-4, the detections within 1e-4
+   (scores) and 1e-2 px (boxes) in every frame with no person score within
+   1e-4 of 0.05 or 0.8 and no top-100 cut within 1e-4 (flips across those
+   counted), and the test suite's exact rig (every score tied) bit for bit.
 
 It prints JSON lines as it goes, then the kernels' summary line (``ms``,
 ``cold_ms``, ``plain_ms`` and ``bound_ms`` there are per step of the
 kernel's route: the sum over a bf16 play step's launches for K1 and K3,
 over a bf16 training step's 33 K2 launches for K2; ``launches`` counts
-phase 4's, 7's, 10's and 11's runs, without the f32 parity checks), the
+phase 4's, 7's, 10's, 11's and 13's runs, without the f32 parity checks), the
 card's nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -183,6 +209,9 @@ from playablevideogeneration_tpu_torch.evaluation.action_sampler import (
     zero_action_variation_sampler,
 )
 from playablevideogeneration_tpu_torch.evaluation.evaluator import Evaluator, evaluation_forward
+from playablevideogeneration_tpu_torch.evaluation.metrics import frcnn
+from playablevideogeneration_tpu_torch.evaluation.metrics.detection import make_detector
+from playablevideogeneration_tpu_torch.evaluation.metrics.frcnn import random_frcnn_variables
 from playablevideogeneration_tpu_torch.evaluation.metrics.fid import (
     compute_statistics_from_frames,
 )
@@ -203,9 +232,10 @@ from playablevideogeneration_tpu_torch.evaluation.metrics.lpips import (
 )
 from playablevideogeneration_tpu_torch.inference.play_session import PlaySession
 from playablevideogeneration_tpu_torch.models.caddy import flagship_model, make_model
+from playablevideogeneration_tpu_torch.models import layers
 from playablevideogeneration_tpu_torch.models.layers import BatchNorm
 from playablevideogeneration_tpu_torch.models.vgg import make_vgg
-from playablevideogeneration_tpu_torch.ops.cuda import build
+from playablevideogeneration_tpu_torch.ops.cuda import build, convlstm_gates
 from playablevideogeneration_tpu_torch.ops.cuda.convlstm_gates import (
     _PACK as GATE_PACK,
     _gate_math,
@@ -222,6 +252,7 @@ from playablevideogeneration_tpu_torch.ops.cuda.fused_norm_act import (
     _batch_norm_leaky_relu,
     fused_batch_norm_leaky_relu,
 )
+from playablevideogeneration_tpu_torch.tools import convergence_soak
 from playablevideogeneration_tpu_torch.training.trainer import Trainer
 from playablevideogeneration_tpu_torch.utils.checkpoint import STATE_FILE
 from playablevideogeneration_tpu_torch.utils.logging import Logger
@@ -2017,6 +2048,381 @@ def distribution_metrics(root: str, eval_config: dict, pair: tuple) -> None:
          videos=list(videos.shape[:2]), errors=errors)
 
 
+# Phase 13: the convergence soak on the breakout_fixed_row setting of
+# docs/CONVERGENCE.md (3 actions, 1-D direction latent, the square's row
+# pinned), at the tool's defaults (48x48 frames, hidden 32, batch 16, 6
+# frames, bf16), cut to 40 pretraining and 160 full-phase steps with an
+# evaluation every 100, in two runs of one root; its evaluation batches of
+# 8 x 6 frames, 8 per pass.
+SOAK_ARGS = ["--actions", "3", "--action-space-dimension", "1", "--fixed-y", "--steps", "200",
+             "--pretraining-steps", "40", "--eval-every", "100", "--no-example-images"]
+SOAK_FIRST_STOP = 100
+SOAK_FRAMES, SOAK_EVAL_BATCH, SOAK_EVAL_BATCHES = 6, 8, 8
+# Phase 14: the Faster R-CNN detector on tennis-shaped frames (96x256, as
+# configs/03_tennis.yaml's videos), one 16-frame sequence at the default
+# 800/1333 transform (500x1333, padded to 512x1344); random weights in the
+# converter's layout from a seed of their own, the box head's person bias
+# raised so that the RoIs' person scores spread over the 0.05 and 0.8
+# thresholds (random weights score every class near 1/91); the f32
+# card-vs-CPU check at a transform of 32/86 (32x85), where no top-k cuts a
+# level's candidates.
+FRCNN_WEIGHTS_SEED = 14
+FRCNN_PERSON_BIAS = 4.5
+FRCNN_FRAMES, FRCNN_HEIGHT, FRCNN_WIDTH = 16, 96, 256
+FRCNN_PARITY_FRAMES, FRCNN_PARITY_RESIZE = 4, (32, 86)
+FRCNN_TIMED_CALLS = 3
+# Scores (probabilities) and boxes (pixels of the input) held card against
+# CPU; the features by backbone_error's atol and rtol.
+FRCNN_SCORE_ATOL, FRCNN_BOX_ATOL = 1e-4, 1e-2
+
+
+class KernelShapes:
+    """Within the block, the (shape, dtype) of every call of K1, K2 and K3
+    (each kernel's wrapper as the model calls it)."""
+
+    def __enter__(self):
+        self.shapes = {name: set() for name in KERNELS}
+        self._saved = (convlstm_gates._forward, convlstm_gates._FusedGates.backward,
+                       layers.fused_batch_norm_leaky_relu)
+        forward, backward, norm = self._saved
+        shapes = self.shapes
+
+        def gates(g, c):
+            shapes["convlstm_gates"].add((tuple(c.shape), c.dtype))
+            return forward(g, c)
+
+        def gates_bwd(ctx, dh, dc):  # dh has c's shape and dtype
+            shapes["convlstm_gates_bwd"].add((tuple(dh.shape), dh.dtype))
+            return backward(ctx, dh, dc)
+
+        def batch_norm(x, *statistics):
+            shapes["fused_norm_act"].add((tuple(x.shape), x.dtype))
+            return norm(x, *statistics)
+
+        # The wrappers count their launches under their own module-level
+        # names, which stay in place.
+        convlstm_gates._forward = gates
+        convlstm_gates._FusedGates.backward = staticmethod(gates_bwd)
+        layers.fused_batch_norm_leaky_relu = batch_norm
+        return self
+
+    def __exit__(self, *exc_info):
+        convlstm_gates._forward, backward, layers.fused_batch_norm_leaky_relu = self._saved
+        convlstm_gates._FusedGates.backward = staticmethod(backward)
+
+
+def check_kernels_at(shapes: dict, gen) -> dict:
+    """K1, K2 and K3 bit for bit against their plain versions at each
+    recorded (shape, dtype); returns the largest error of each."""
+    cases = {"convlstm_gates": (gate_inputs, fused_lstm_gates, _gate_math),
+             "convlstm_gates_bwd": (gate_backward_inputs, fused_lstm_gates_bwd, _gate_math_bwd),
+             "fused_norm_act": (norm_inputs, fused_batch_norm_leaky_relu,
+                                _batch_norm_leaky_relu)}
+    errors = dict.fromkeys(KERNELS, 0.0)
+    for name, recorded in shapes.items():
+        make_args, kernel, plain = cases[name]
+        for shape, dtype in sorted(recorded, key=str):
+            args = make_args(shape, dtype, gen)
+            got, want = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            errors[name] = max(errors[name], compare(name, shape, dtype, got, want))
+    return errors
+
+
+def time_soak_kernels(shapes: dict, gen) -> dict:
+    """K1 and K2 at the soak's bf16 train-step shapes (batch 16), K3 at the
+    three largest of its evaluation batch's (bf16, warm and cold); returns
+    the device time of one train step's K1 and K2 launches (the three
+    ConvLSTMs per dynamics step: two at the state's size, one at half)."""
+    dtype, size = torch.bfloat16, 2
+    step = {}
+    gates = sorted(s for s, d in shapes["convlstm_gates_bwd"] if d == dtype)
+    for shape in gates:
+        elements = math.prod(shape)
+        # lstm0 and lstm2 run at the larger state, lstm1 at the smaller.
+        count = (SOAK_FRAMES - 1) * (2 if shape == max(gates, key=math.prod) else 1)
+        add_to(step, "convlstm_gates", kernel_time(
+            "convlstm_gates", shape, fused_lstm_gates, _gate_math,
+            lambda: gate_inputs(shape, dtype, gen), elements * 7 * size,
+            elements * GATE_OPS_PER_ELEMENT), count)
+        add_to(step, "convlstm_gates_bwd", kernel_time(
+            "convlstm_gates_bwd", shape, fused_lstm_gates_bwd, _gate_math_bwd,
+            lambda: gate_backward_inputs(shape, dtype, gen), elements * 12 * size,
+            elements * GATE_BWD_OPS_PER_ELEMENT), count)
+    norms = [s for s, d in shapes["fused_norm_act"] if d == dtype]
+    for shape in sorted(norms, key=math.prod, reverse=True)[:3]:
+        elements = math.prod(shape)
+        kernel_time("fused_norm_act", shape, fused_batch_norm_leaky_relu,
+                    _batch_norm_leaky_relu, lambda: norm_inputs(shape, dtype, gen),
+                    elements * 2 * size + 16 * shape[1], elements * NORM_OPS_PER_ELEMENT)
+    return step
+
+
+def soak_run(argv: list) -> tuple:
+    """``convergence_soak.main(argv)``; its exit code (None for 0) and what
+    it printed."""
+    printed, code = io.StringIO(), None
+    with contextlib.redirect_stdout(printed):
+        try:
+            convergence_soak.main(argv)
+        except SystemExit as exit_info:
+            code = exit_info.code
+    return code, printed.getvalue()
+
+
+def convergence_soak_phase(root: str, gen) -> dict:
+    """Phase 13: ``tools.convergence_soak`` in bf16 at SOAK_ARGS, run twice
+    in one root (stopped at step 100, then resumed to 200): every logged
+    loss finite, ``eval_curve.jsonl`` and ``summary.json`` written, the
+    second run's first step the first run's last plus one; K1 and K2 3(T-1)
+    times per train step and K3 never, K1 3(T-1) and K3 once per frozen
+    BatchNorm + LeakyReLU per evaluation batch; K1, K2 and K3 bit for bit
+    at every shape the soak gave them.  The accuracy target is not
+    required: 200 steps are too few.  Returns the launch counts."""
+    soak_root = os.path.join(root, "soak")
+    argv = ["--root", soak_root, *SOAK_ARGS]
+    with LoopRecorder() as recorder, KernelShapes() as kernel_shapes:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        start = time.perf_counter()
+        first_code, first = soak_run(argv + ["--stop-at", str(SOAK_FIRST_STOP)])
+        first_steps = len(recorder.steps)
+        second_code, second = soak_run(argv)
+        seconds = time.perf_counter() - start
+        torch.cuda.synchronize()
+        launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(first_code is None and f"[soak] stopped at step {SOAK_FIRST_STOP}" in first,
+            (first_code, first[-2000:]))
+    require(second_code in (None, 1) and f"[soak] resumed at step {SOAK_FIRST_STOP}" in second,
+            (second_code, second[-2000:]))
+    steps = [r["step"] for r in recorder.steps]
+    require(steps == list(range(1, 201)) and steps[first_steps] == steps[first_steps - 1] + 1,
+            f"soak steps {steps[:3]}...{steps[-3:]}, the second run from {steps[first_steps]}")
+
+    want_step = {"convlstm_gates": 3 * (SOAK_FRAMES - 1),
+                 "convlstm_gates_bwd": 3 * (SOAK_FRAMES - 1), "fused_norm_act": 0}
+    for record in recorder.steps:
+        metrics = record["metrics"]
+        require(np.isfinite(metrics["loss"]) and record["launches"] == want_step,
+                f"soak step {record['step']}: loss {metrics['loss']}, "
+                f"launches {record['launches']}")
+    want_batch = {"convlstm_gates": 3 * (SOAK_FRAMES - 1), "convlstm_gates_bwd": 0,
+                  "fused_norm_act": len(eval_norm_shapes(SOAK_EVAL_BATCH, SOAK_FRAMES))}
+    for forward in recorder.forwards:
+        require(forward["frames"] == (SOAK_EVAL_BATCH, SOAK_FRAMES)
+                and forward["launches"] == want_batch, f"soak evaluation batch {forward}")
+    require([p["label"] for p in recorder.passes] == [None, "one_hot"] * 2
+            and all(p["batches"] == SOAK_EVAL_BATCHES for p in recorder.passes),
+            recorder.passes)
+
+    with open(os.path.join(soak_root, "train_log.jsonl")) as f:
+        logged = [json.loads(line) for line in f if line.strip()]
+    losses = [(r["step"], k, v) for r in logged for k, v in r.items() if "loss" in k]
+    require(losses and all(np.isfinite(v) for _, _, v in losses),
+            [x for x in losses if not np.isfinite(x[2])][:5])
+    curve = convergence_soak.read_eval_curve(os.path.join(soak_root, "eval_curve.jsonl"))
+    require([r["step"] for r in curve] == [100, 200] and all(
+        np.isfinite(r[k]) for r in curve for k in ("observations_loss", "actions_accuracy",
+                                                   "one_hot_actions_accuracy")), curve)
+    with open(os.path.join(soak_root, "artifacts", "summary.json")) as f:
+        summary = json.load(f)
+    require(summary["steps"] == 200 and summary["target_met"] == (second_code is None), summary)
+
+    errors = check_kernels_at(kernel_shapes.shapes, gen)
+    kernels_per_step = time_soak_kernels(kernel_shapes.shapes, gen)
+    # The first step of each run builds cuDNN's plans; the rest are timed.
+    step_ms = [r["seconds"] * 1e3 for r in recorder.steps
+               if r["step"] not in (1, SOAK_FIRST_STOP + 1)]
+    pass_s = [p["seconds"] for p in recorder.passes]
+    emit(phase="convergence_soak", dtype="bf16", steps=200, seconds=seconds,
+         train_step_ms_median=statistics.median(step_ms), train_step_ms_min=min(step_ms),
+         train_step_ms_max=max(step_ms),
+         evaluation_ms=[1e3 * (a + b) for a, b in zip(pass_s[::2], pass_s[1::2])],
+         evaluation_pass_ms=[1e3 * s for s in pass_s], peak_memory_gib=peak_gib,
+         launches=launches, launches_per_step=want_step,
+         launches_per_evaluation_batch=want_batch,
+         evaluation_batches=len(recorder.forwards), eval_curve=curve,
+         best_actions_accuracy=summary["best_actions_accuracy"],
+         best_one_hot_actions_accuracy=summary["best_one_hot_actions_accuracy"],
+         target_met=summary["target_met"], logged_losses=len(losses),
+         kernel_shapes={name: sorted(f"{DTYPE_NAMES[d]} {s}" for s, d in shapes)
+                        for name, shapes in kernel_shapes.shapes.items()},
+         max_abs_err=errors, kernels_per_step=kernels_per_step)
+    return launches
+
+
+def frcnn_weights() -> dict:
+    variables = random_frcnn_variables(FRCNN_WEIGHTS_SEED)
+    variables["params"]["box_head"]["cls_score"]["bias"][frcnn.PERSON_LABEL] += (
+        FRCNN_PERSON_BIAS)
+    return variables
+
+
+def tennis_frames(count: int) -> np.ndarray:
+    """(count, 96, 256, 3) frames in [0, 1]: a player-sized square moving
+    over the background."""
+    video = make_moving_square_video(count, FRCNN_HEIGHT, FRCNN_WIDTH, square=24,
+                                     actions_count=5, seed=SEED, step_pixels=8)
+    return np.stack([video.get_frame_at(i) for i in range(count)]).astype(np.float32) / 255.0
+
+
+def exact_rig(variables: dict) -> dict:
+    """tests/test_torch_frcnn.py's exact rig: the proposals are the anchors
+    at one score, every valid RoI scores 'person' exactly 1 and keeps its
+    box: the outputs depend on no floating-point rounding, only on the
+    order of equal scores."""
+    variables = copy.deepcopy(variables)
+    p = variables["params"]
+    for name, value in (("kernel", 0.0), ("bias", 2.0)):
+        p["rpn_head"]["cls_logits"][name][:] = value
+    for head in (p["rpn_head"]["bbox_pred"], p["box_head"]["bbox_pred"]):
+        head["kernel"][:] = 0.0
+        head["bias"][:] = 0.0
+    p["box_head"]["cls_score"]["kernel"][:] = 0.0
+    p["box_head"]["cls_score"]["bias"][:] = -100.0
+    p["box_head"]["cls_score"]["bias"][frcnn.PERSON_LABEL] = 0.0
+    return variables
+
+
+def near_a_threshold(class_scores: np.ndarray, detection_scores: np.ndarray) -> bool:
+    """Whether one frame's outputs hang on a score within FRCNN_SCORE_ATOL
+    of a threshold: a RoI's person score near 0.05 or 0.8, or the last
+    detection the top-100 keeps near the first it drops."""
+    ranked = np.sort(detection_scores)[::-1]
+    cut = frcnn.DETECTIONS_PER_IMG
+    return bool(any((np.abs(class_scores - t) <= FRCNN_SCORE_ATOL).any()
+                    for t in (frcnn.BOX_SCORE_THRESH, 0.8))
+                or (len(ranked) > cut and ranked[cut] > 0
+                    and ranked[cut - 1] - ranked[cut] <= FRCNN_SCORE_ATOL))
+
+
+def detections_agree(card: tuple, cpu: tuple, frame: int) -> bool:
+    """One frame's final detections within FRCNN_SCORE_ATOL and
+    FRCNN_BOX_ATOL, with the same labels."""
+    (boxes, scores, labels), (want_boxes, want_scores, want_labels) = (
+        [x[frame] for x in card], [x[frame] for x in cpu])
+    return bool(np.array_equal(labels, want_labels)
+                and np.abs(scores - want_scores).max() <= FRCNN_SCORE_ATOL
+                and np.abs(boxes - want_boxes).max() <= FRCNN_BOX_ATOL)
+
+
+def detector_phase(root: str) -> None:
+    """Phase 14: ``evaluation.detector: frcnn`` through ``make_detector`` on a
+    random ``frcnn.npz`` in the converter's layout: the loaded weights are
+    the file's bit for bit; 16 tennis-shaped frames at the default transform
+    give static, finite outputs with some person boxes above 0.8; timings
+    (backbone and box stages apart), launches per frame and peak memory,
+    the person boxes with TF32 on and off; then f32 with TF32 off against
+    the CPU at a 32/86 transform: the FPN levels within backbone_error's
+    tolerance, the final detections within FRCNN_SCORE_ATOL and
+    FRCNN_BOX_ATOL in every frame that hangs on no score near a threshold
+    (``near_a_threshold``; flips across those are counted), and the exact
+    rig's detections bit for bit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    directory = os.path.join(root, "frcnn_weights")
+    variables = frcnn_weights()
+    save_variables_npz(variables, os.path.join(directory, pretrained.WEIGHT_FILES["frcnn"]))
+    config = {"evaluation": {"detector": "frcnn"},
+              "tpu": {"pretrained_weights_dir": directory}}
+    detector = make_detector(config)
+    model = detector.backend.model
+    tensors = require_same_weights(model, frcnn.make_frcnn(load_variables_npz(
+        os.path.join(directory, pretrained.WEIGHT_FILES["frcnn"])), device="cpu"), "frcnn")
+
+    frames_np = tennis_frames(FRCNN_FRAMES)
+    centers = detector(frames_np[None])
+    require(centers.shape == (1, FRCNN_FRAMES, 2) and np.isfinite(centers).all(), centers)
+    frames = torch.as_tensor(frames_np, device="cuda")
+    input_size = frames.shape[1:3]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    backbone_ms, box_ms = [], []
+    for _ in range(FRCNN_TIMED_CALLS):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        levels = model.features(frames)
+        torch.cuda.synchronize()
+        middle = time.perf_counter()
+        boxes, scores, labels = (t.cpu().numpy() for t in model.detect(levels, input_size))
+        end = time.perf_counter()
+        backbone_ms.append((middle - start) * 1e3 / FRCNN_FRAMES)
+        box_ms.append((end - middle) * 1e3 / FRCNN_FRAMES)
+        del levels
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(boxes.shape == (FRCNN_FRAMES, frcnn.DETECTIONS_PER_IMG, 4)
+            and scores.shape == labels.shape == (FRCNN_FRAMES, frcnn.DETECTIONS_PER_IMG)
+            and np.isfinite(boxes).all() and np.isfinite(scores).all(),
+            (boxes.shape, scores.shape))
+    person = int((scores > 0.8).sum())
+    require(person > 0 and (labels[scores > 0] == frcnn.PERSON_LABEL).all()
+            and (labels[scores <= 0] == -1).all(), f"{person} person boxes above 0.8")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model(frames)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = sum(e.count for e in events if not e.key.startswith("Memcpy"))
+    copies = sum(e.count for e in events if e.key.startswith("Memcpy"))
+    torch.backends.cudnn.allow_tf32 = False
+    _, scores_off, _ = model(frames)
+    torch.backends.cudnn.allow_tf32 = True
+    emit(phase="detector", frames=FRCNN_FRAMES, input=[FRCNN_HEIGHT, FRCNN_WIDTH],
+         transform=list(model.geometry(FRCNN_HEIGHT, FRCNN_WIDTH)[1:]), weights_tensors=tensors,
+         weights_bit_for_bit=True, backbone_ms_per_frame=statistics.median(backbone_ms),
+         box_stage_ms_per_frame=statistics.median(box_ms), backbone_ms_all=backbone_ms,
+         box_stage_ms_all=box_ms, kernels_per_frame=kernels / FRCNN_FRAMES,
+         copies_per_frame=copies / FRCNN_FRAMES, peak_memory_gib=peak_gib,
+         person_boxes_above_0_8_tf32_on=person,
+         person_boxes_above_0_8_tf32_off=int((scores_off > 0.8).sum().item()),
+         detections_above_0_05=int((scores > 0).sum()), player_centers=centers[0].tolist())
+    del model, detector, frames
+
+    # f32 with TF32 off, the card against the CPU, at the reduced transform.
+    torch.backends.cudnn.allow_tf32 = False
+    images = frames_np[:FRCNN_PARITY_FRAMES]
+    report = {}
+    for name, weights in (("random", variables), ("exact_rig", exact_rig(variables))):
+        outputs = {}
+        for device in ("cuda", "cpu"):
+            model = frcnn.make_frcnn(weights, *FRCNN_PARITY_RESIZE, device=device)
+            taps = {}
+            levels = model.features(torch.as_tensor(images, device=device))
+            result = model.detect(levels, images.shape[1:3], taps)
+            outputs[device] = ([l.cpu().numpy() for l in levels],
+                               tuple(t.cpu().numpy() for t in result),
+                               (taps["masked_class_scores"].cpu().numpy(),
+                                taps["detection_scores"].cpu().numpy()))
+        (card_levels, card, card_scores), (cpu_levels, cpu, cpu_scores) = (
+            outputs["cuda"], outputs["cpu"])
+        if name == "exact_rig":
+            require(all(np.array_equal(a, b) for a, b in zip(card, cpu))
+                    and (card[1] > 0.8).any(), "the exact rig's detections differ")
+            report[name] = dict(bit_for_bit=True, detections=int((card[1] > 0).sum()))
+            continue
+        errors = [backbone_error(a, b, f"P{i + 2}") for i, (a, b) in
+                  enumerate(zip(card_levels, cpu_levels))]
+        near = [near_a_threshold(scores[0][i], scores[1][i])
+                for scores in (card_scores, cpu_scores) for i in range(len(images))]
+        near = [a or b for a, b in zip(near[:len(images)], near[len(images):])]
+        agree = [detections_agree(card, cpu, i) for i in range(len(images))]
+        require(all(a or n for a, n in zip(agree, near)),
+                f"detections differ away from the thresholds: agree {agree}, near {near}")
+        report[name] = dict(levels=errors, frames_agreeing=sum(agree),
+                            threshold_flips=sum(not a for a in agree),
+                            frames_with_a_score_near_a_threshold=sum(near),
+                            max_score_err=float(np.abs(card[1] - cpu[1]).max()),
+                            detections=int((cpu[1] > 0).sum()))
+    torch.backends.cudnn.allow_tf32 = True
+    emit(phase="detector_parity", dtype="f32", tf32=False, frames=FRCNN_PARITY_FRAMES,
+         transform=list(FRCNN_PARITY_RESIZE), score_atol=FRCNN_SCORE_ATOL,
+         box_atol=FRCNN_BOX_ATOL, **report)
+
+
 def kernel_group(name: str) -> str:
     return next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)), "other")
 
@@ -2156,12 +2562,14 @@ def main() -> None:
         loop_launches = train_loop(root)
         after_launches, eval_config, pair = after_training(root)
         distribution_metrics(root, eval_config, pair)
+        soak_launches = convergence_soak_phase(root, gen)
+        detector_phase(root)
 
     kernels = [dict(name=name, route="cuda",
                     source=f"playablevideogeneration_tpu_torch/ops/cuda/csrc/{source}.cu",
                     replaces=replaces,
                     launches=(play_launches[name] + train_launches[name] + loop_launches[name]
-                              + after_launches[name]),
+                              + after_launches[name] + soak_launches[name]),
                     max_abs_err=errors[name], ms=sums[name]["ms"],
                     cold_ms=sums[name]["cold_ms"],
                     plain_ms=sums[name]["plain_ms"], bound_ms=sums[name]["bound_ms"],

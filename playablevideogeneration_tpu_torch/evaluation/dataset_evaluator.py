@@ -129,7 +129,8 @@ class DatasetEvaluator:
         self.fvd_embedder = fvd_embedder
         self.class_probability_fn = class_probability_fn
         self.compute_is = bool(config["evaluation"].get("compute_inception_score", False))
-        self.detector = make_detector(config) if detector is None else detector
+        self.detector = (make_detector(config, self.device) if detector is None
+                         else detector)
 
     @torch.no_grad()
     def _compute_frame_metrics(self, reference: np.ndarray, generated: np.ndarray

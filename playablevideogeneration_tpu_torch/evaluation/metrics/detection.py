@@ -12,15 +12,16 @@ host-side numpy and scipy:
 - ``detection_metric``: per-position successful and missed detections and
   the average centre distance.
 
-The Faster R-CNN backend (``evaluation.detector: frcnn``) is not ported
-yet (ROADMAP.md, Queue 1, "Faster R-CNN tennis detector"): asking for it
-raises instead of degrading.
+The Faster R-CNN backend (``evaluation.detector: frcnn``) is
+``metrics/frcnn.py``, on the device.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import numpy as np
+
+from playablevideogeneration_tpu_torch.utils.device import DeviceLike
 
 
 def breakout_platform_positions(observations: np.ndarray) -> np.ndarray:
@@ -202,11 +203,13 @@ class TennisPlayerDetector:
         return centers
 
 
-def make_detector(config) -> TennisPlayerDetector:
+def make_detector(config, device: DeviceLike = "cuda") -> TennisPlayerDetector:
     """Config-selectable detector backend.
 
-    ``evaluation.detector: none | blob | <module>:<callable>``; ``frcnn``
-    raises NotImplementedError.
+    ``evaluation.detector: none | blob | frcnn | <module>:<callable>``.
+    ``frcnn`` is the Faster R-CNN ResNet50-FPN (``metrics/frcnn.py``) on
+    ``device``, with the weights converted from the torchvision
+    checkpoint the reference downloads (``frcnn.npz``).
     """
     spec = (config.get("evaluation", {}) or {}).get("detector", "none")
     if spec in (None, "none"):
@@ -214,11 +217,11 @@ def make_detector(config) -> TennisPlayerDetector:
     if spec == "blob":
         return TennisPlayerDetector(backend="blob")
     if spec == "frcnn":
-        raise NotImplementedError(
-            "evaluation.detector 'frcnn' (the Faster R-CNN backend, "
-            "evaluation/metrics/frcnn.py) is not ported to PyTorch yet: ROADMAP.md, "
-            "Queue 1, 'Faster R-CNN tennis detector'; use 'blob' or a "
-            "'<module>:<callable>' proposer")
+        from playablevideogeneration_tpu_torch.evaluation.metrics.frcnn import (
+            frcnn_backend_from_config,
+        )
+
+        return TennisPlayerDetector(backend=frcnn_backend_from_config(config, device))
     module_name, _, attr = str(spec).partition(":")
     import importlib
 

@@ -269,13 +269,17 @@ def test_detection_metric_matches_jax():
     assert got["det/mdr/4"] == 1.0 and got["det/add/4"] == -1.0
 
 
-def test_make_detector_matches_jax_and_refuses_frcnn():
+def test_make_detector_matches_jax_and_refuses_frcnn(monkeypatch):
+    """The backends resolve as the JAX package's; ``frcnn`` without its
+    converted weights is refused as there (tests/test_torch_frcnn.py runs
+    it with them)."""
     for spec in (None, "none", "blob"):
         got = detection.make_detector({"evaluation": {"detector": spec}})
         want = jax_detection.make_detector({"evaluation": {"detector": spec}})
         assert got.available == want.available
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        detection.make_detector({"evaluation": {"detector": "frcnn"}})
+    monkeypatch.delenv("PVG_PRETRAINED_WEIGHTS", raising=False)
+    with pytest.raises(FileNotFoundError, match="frcnn"):
+        detection.make_detector({"evaluation": {"detector": "frcnn"}}, device="cpu")
 
 
 def _movements(seed=8, n=60, actions=3):
