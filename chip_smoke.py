@@ -19,7 +19,8 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    at every shape the flagship's play and training steps give it (batch 1
    and 16), the training loop's gate shapes at batch 8, every shape an
    evaluation or builder batch gives K3 (8 x 30 frames: ``EVAL_NORM_SHAPES``)
-   and phase 11's f32 builder batch of 2 x 8 frames gives K1 and K3, plus a
+   and phase 11's f32 builder batch of 2 x 8 frames gives K1 and K3, phase
+   15's ranks' 4 rows give K1 and K2, plus a
    ragged case (3x65x25x40), a C*H*W that is no multiple of a vector
    (3x5x7x9) and inputs whose storage starts one element into its buffer,
    in f32 and bf16, and K2 at the training and loop shapes, the ragged and
@@ -150,19 +151,43 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    (scores) and 1e-2 px (boxes) in every frame with no person score within
    1e-4 of 0.05 or 0.8 and no top-100 cut within 1e-4 (flips across those
    counted), and the test suite's exact rig (every score tied) bit for bit.
+15. data-parallel training: BAIR's loop config (256x256, hidden 128, bf16,
+   global batch 8 at 7 frames) cut to one pretraining and three
+   full-phase steps and an evaluation after the fourth (one batch per
+   pass), through ``cli.train.train`` in processes that this script starts
+   with torchrun's environment (``chip_smoke.py --data-parallel-rank
+   SPEC``), every step deterministic (``torch.use_deterministic_algorithms``).
+   (a) one NCCL rank beside the one-process trainer: every step's state
+   (parameters, buffers, Adam's moments, centroids, MI matrix) and the
+   loss bit for bit; (b) two gloo ranks sharing the card, 4 rows each:
+   bit for bit with each other after every step, within
+   ``__graft_entry__.dryrun_multichip``'s tolerances of (a) after steps 1
+   and 2 (the loss within 1e-3 relative at step 1; parameters rtol 2e-3
+   and atol 4 lr; BatchNorm statistics, centroids and MI matrix atol lr),
+   K1 and K2 18 times per rank per step and K3 never, rank 0 alone
+   evaluating; (c) (b)'s checkpoint resumed on one NCCL rank and (a)'s on
+   two gloo ranks: the state bit for bit and the next step's loss finite.
+   Prints ms per step per rank (median and range of steps 2-4), one
+   step's collectives replayed alone as the gloo all-reduce's share of the
+   step, and peak memory per rank.  NCCL across several cards is not
+   exercised: the machine has one.
 
 It prints JSON lines as it goes, then the kernels' summary line (``ms``,
 ``cold_ms``, ``plain_ms`` and ``bound_ms`` there are per step of the
 kernel's route: the sum over a bf16 play step's launches for K1 and K3,
 over a bf16 training step's 33 K2 launches for K2; ``launches`` counts
-phase 4's, 7's, 10's, 11's and 13's runs, without the f32 parity checks), the
-card's nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+phase 4's, 7's, 10's, 11's, 13's and 15's runs, without the f32 parity
+checks), the card's nvidia-smi line, and last ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import functools
+import gc
+import hashlib
 import importlib.util
 import io
 import itertools
@@ -170,6 +195,8 @@ import json
 import math
 import os
 import re
+import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -252,6 +279,7 @@ from playablevideogeneration_tpu_torch.ops.cuda.fused_norm_act import (
     _batch_norm_leaky_relu,
     fused_batch_norm_leaky_relu,
 )
+from playablevideogeneration_tpu_torch.parallel import mesh
 from playablevideogeneration_tpu_torch.tools import convergence_soak
 from playablevideogeneration_tpu_torch.training.trainer import Trainer
 from playablevideogeneration_tpu_torch.utils.checkpoint import STATE_FILE
@@ -388,6 +416,8 @@ LOOP_BATCH, LOOP_FRAMES, EVAL_FRAMES = 8, 7, 30
 LOOP_DYNAMICS_STEPS, EVAL_DYNAMICS_STEPS = LOOP_FRAMES - 1, EVAL_FRAMES - 1
 GATE_LOOP_SHAPES = [(LOOP_BATCH, 128, 32, 32), (LOOP_BATCH, 256, 16, 16),
                     (LOOP_BATCH, 128, 32, 32)]  # lstm0, lstm1, lstm2
+# Phase 15's two ranks train on 4 rows each of the loop's batch.
+GATE_RANK_SHAPES = [(LOOP_BATCH // 2,) + s[1:] for s in GATE_LOOP_SHAPES]
 
 
 def eval_norm_shapes(batch: int, frames: int) -> list:
@@ -610,11 +640,13 @@ def check_kernels(gen) -> dict:
         cases = [("convlstm_gates", s, o, gate_inputs(s, dtype, gen, o), fused_lstm_gates,
                   _gate_math)
                  for s, o in [(s, 0) for s in unique(GATE_SHAPES + GATE_TRAIN_SHAPES
-                                                     + GATE_LOOP_SHAPES + GATE_PARITY_SHAPES)]
+                                                     + GATE_LOOP_SHAPES + GATE_RANK_SHAPES
+                                                     + GATE_PARITY_SHAPES)]
                  + [(GATE_RAGGED_SHAPE, 0), (UNVECTORED_SHAPE, 0), (GATE_SHAPES[0], 1)]]
         cases += [("convlstm_gates_bwd", s, o, gate_backward_inputs(s, dtype, gen, o),
                    fused_lstm_gates_bwd, _gate_math_bwd)
-                  for s, o in [(s, 0) for s in unique(GATE_TRAIN_SHAPES + GATE_LOOP_SHAPES)]
+                  for s, o in [(s, 0) for s in unique(GATE_TRAIN_SHAPES + GATE_LOOP_SHAPES
+                                                      + GATE_RANK_SHAPES)]
                   + [(GATE_RAGGED_SHAPE, 0), (UNVECTORED_SHAPE, 0), (GATE_TRAIN_SHAPES[0], 1)]]
         cases += [("fused_norm_act", s, o, norm_inputs(s, dtype, gen, o),
                    fused_batch_norm_leaky_relu, _batch_norm_leaky_relu)
@@ -2423,6 +2455,347 @@ def detector_phase(root: str) -> None:
          box_atol=FRCNN_BOX_ATOL, **report)
 
 
+# Phase 15, data-parallel training: BAIR's loop config (``loop_config``)
+# with one pretraining and three full-phase steps and an evaluation after
+# the fourth (one batch per pass), each run in subprocesses that this
+# script starts with torchrun's environment; a resumed run takes one more
+# full-phase step.  Two ranks are held against one rank at the dryrun's
+# tolerances (``__graft_entry__.dryrun_multichip``) on each phase's first
+# step from one state: step 1 (pretraining) from the seeded state, and
+# the resumed step from one checkpoint.  Past a step the two sides'
+# parameters differ by up to 2 lr where a gradient near 0 took the other
+# sign in Adam's first update, and the next step's statistics amplify
+# that (1.8 times the dryrun's atol at step 2 in an f32 rehearsal).
+DP_OVERRIDES = {("training", "pretraining_steps"): 1, ("training", "max_steps"): 4,
+                ("training", "save_freq"): 100, ("evaluation", "eval_freq"): 4,
+                ("evaluation", "max_evaluation_batches"): 1}
+DP_STEPS, DP_TIMED_STEPS = 4, (2, 3, 4)
+DP_TIMEOUT_S = 300
+# The BatchNorm statistics, centroids and MI matrix among the state's
+# tensors: the dryrun's atol for them is lr, for the parameters 4 lr.
+DP_STATISTICS = ("running_mean", "running_var", "centroids", "mi_matrix")
+
+
+def data_parallel_config(root: str) -> dict:
+    config = loop_config(root)
+    for (section, key), value in DP_OVERRIDES.items():
+        config[section][key] = value
+    return config
+
+
+def state_digest(snapshot: dict) -> str:
+    """SHA-256 of every byte of a ``state_snapshot``'s tensors (parameters
+    and buffers, Adam's slots, the MI matrix)."""
+    digest = hashlib.sha256()
+    for name, value in itertools.chain(snapshot["model"].items(), snapshot["adam"].items(),
+                                       [("mi_matrix", snapshot["mi_matrix"])]):
+        digest.update(str(name).encode())
+        digest.update(value.contiguous().reshape(-1).view(torch.uint8).numpy())
+    return digest.hexdigest()
+
+
+def data_parallel_rank(spec_path: str) -> None:
+    """One process of phase 15 (``chip_smoke.py --data-parallel-rank
+    SPEC``): joins the group that its torchrun environment describes (none
+    for the one-process run), drives ``cli.train.train`` on BAIR's loop
+    config with in-memory videos, each step deterministic
+    (``torch.use_deterministic_algorithms``, so that two runs of one
+    global batch can be held bit for bit), and writes what it saw to the
+    spec's ``result`` path: per step its launches, seconds, loss, rows and
+    state digest; the state after ``dump_steps``; the digest after a
+    resume and at the end; its peak memory; and on ranks that share the
+    card, the time of one step's collectives replayed on their own."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    device = mesh.init_distributed(spec["device"], backend=spec["backend"])
+    rank = mesh.process_info().rank
+    config = data_parallel_config(spec["root"])
+    datasets = loop_datasets(config)
+    dumps, digests, collectives = {}, {}, []
+    all_reduce = torch.distributed.all_reduce
+
+    def recording_all_reduce(tensor, *args, **kwargs):
+        collectives.append((tensor.numel(), str(tensor.dtype)))
+        return all_reduce(tensor, *args, **kwargs)
+
+    with LoopRecorder() as recorder:
+        recorded_step, load_checkpoint = Trainer.train_step, Trainer.load_checkpoint
+
+        def step(trainer, batch):
+            record = trainer.global_step + 1 == DP_STEPS and trainer.distributed
+            torch.use_deterministic_algorithms(True)
+            if record:
+                torch.distributed.all_reduce = recording_all_reduce
+            try:
+                metrics = recorded_step(trainer, batch)
+            finally:
+                torch.use_deterministic_algorithms(False)
+                torch.distributed.all_reduce = all_reduce
+            snapshot = state_snapshot(trainer)
+            recorder.steps[-1].update(rows=len(batch.actions), digest=state_digest(snapshot))
+            if trainer.global_step in spec["dump_steps"]:
+                dumps[trainer.global_step] = dict(snapshot["model"],
+                                                  mi_matrix=snapshot["mi_matrix"])
+            return metrics
+
+        def load(trainer, name=None):
+            load_checkpoint(trainer, name)
+            digests["resumed"] = state_digest(state_snapshot(trainer))
+
+        Trainer.train_step, Trainer.load_checkpoint = step, load
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            trainer = train(config, max_steps=spec["max_steps"], device=device,
+                            datasets=datasets)
+            torch.cuda.synchronize()
+            launches = read_launches()
+        finally:
+            Trainer.train_step, Trainer.load_checkpoint = recorded_step, load_checkpoint
+    digests["final"] = state_digest(state_snapshot(trainer))
+    replay_ms = None
+    if collectives and spec["backend"] == "gloo":
+        buffers = [torch.zeros(n, dtype=getattr(torch, dtype.split(".")[1]), device=device)
+                   for n, dtype in collectives]
+        for _ in range(2):  # the second is timed
+            mesh.barrier()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for buffer in buffers:
+                torch.distributed.all_reduce(buffer)
+            torch.cuda.synchronize()
+            replay_ms = (time.perf_counter() - start) * 1e3
+    for step_number, tensors in dumps.items():
+        torch.save(tensors, os.path.join(spec["root"], f"state_{step_number}_rank{rank}.pt"))
+    result = dict(
+        process=list(dataclasses.astuple(mesh.process_info())), launches=launches,
+        steps=[{k: r[k] for k in ("step", "seconds", "launches", "rows", "digest")}
+               | {"loss": r["metrics"]["loss"], "pretraining": r["metrics"]["pretraining"]}
+               for r in recorder.steps],
+        evaluation_forwards=[f["launches"] for f in recorder.forwards],
+        digests=digests, peak_memory_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30,
+        collectives=len(collectives), collective_elements=sum(n for n, _ in collectives),
+        collective_replay_ms=replay_ms)
+    with open(spec["result"] % rank, "w") as f:
+        json.dump(result, f)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+class RankGroup:
+    """One run of ``data_parallel_rank``: ``world`` processes with
+    torchrun's environment (none when ``world`` is 0, the one-process
+    trainer), their output in a log beside the run's root."""
+
+    def __init__(self, root: str, name: str, world: int, device: str, backend, **spec):
+        self.root, self.name, self.world = os.path.join(root, name), name, world
+        os.makedirs(self.root, exist_ok=True)
+        spec = dict(spec, root=self.root, device=device, backend=backend,
+                    result=os.path.join(self.root, "result_%d.json"))
+        spec_path = os.path.join(self.root, "spec.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        if world:
+            env.update(MASTER_ADDR="localhost", MASTER_PORT=str(free_port()),
+                       WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
+        self.logs, self.procs = [], []
+        for rank in range(max(world, 1)):
+            if world:
+                env.update(RANK=str(rank), LOCAL_RANK=str(rank))
+            log = open(os.path.join(self.root, f"log_{rank}.txt"), "w")
+            self.logs.append(log)
+            self.procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--data-parallel-rank", spec_path],
+                env=dict(env), stdout=log, stderr=subprocess.STDOUT))
+
+    def stop(self) -> None:
+        """Kills the processes still running and closes the logs."""
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for log in self.logs:
+            log.close()
+
+    def wait(self) -> list:
+        """Each process's result; raises with the logs' ends if one failed
+        or ran past DP_TIMEOUT_S."""
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        try:
+            for proc in self.procs:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            self.stop()
+        if any(proc.returncode for proc in self.procs):
+            tails = [Path(log.name).read_text()[-3000:] for log in self.logs]
+            raise RuntimeError(f"phase 15 run {self.name} failed (exit codes "
+                               f"{[p.returncode for p in self.procs]}):\n" + "\n".join(tails))
+        results = []
+        for rank in range(max(self.world, 1)):
+            with open(os.path.join(self.root, f"result_{rank}.json")) as f:
+                results.append(json.load(f))
+        return results
+
+
+def wait_all(*groups: RankGroup) -> list:
+    """Each group's results; whatever fails, no process is left running."""
+    try:
+        return [group.wait() for group in groups]
+    finally:
+        for group in groups:
+            group.stop()
+
+
+def compare_with_one_rank(two: RankGroup, one: RankGroup, step: int, lr: float) -> dict:
+    """Two ranks' state against one rank's after ``step``, at the dryrun's
+    tolerances: parameters rtol 2e-3 and atol 4 lr, BatchNorm statistics,
+    centroids and the MI matrix rtol 2e-3 and atol lr; returns the largest
+    error as a share of its tolerance, per kind."""
+    got = torch.load(os.path.join(two.root, f"state_{step}_rank0.pt"))
+    want = torch.load(os.path.join(one.root, f"state_{step}_rank0.pt"))
+    require(got.keys() == want.keys(), "the dumped states differ in their tensors")
+    worst = {"parameters": 0.0, "statistics": 0.0}
+    for key, value in want.items():
+        kind = "statistics" if key.endswith(DP_STATISTICS) else "parameters"
+        atol = lr if kind == "statistics" else 4 * lr
+        share = float(((got[key].double() - value.double()).abs()
+                       / (atol + 2e-3 * value.double().abs())).max())
+        require(share <= 1.0, f"step {step}: {key} differs from one rank by {share:.3f} "
+                              f"of the dryrun's tolerance")
+        worst[kind] = max(worst[kind], share)
+    return worst
+
+
+def require_loss_close(two: dict, one: dict) -> None:
+    loss, want = two["loss"], one["loss"]
+    require(abs(loss - want) < 1e-3 * max(1.0, abs(want)),
+            f"step {two['step']}: loss {loss} on two ranks, {want} on one")
+
+
+def data_parallel_phase(root: str) -> dict:
+    """Phase 15: (a) the one-process trainer and one NCCL rank, side by
+    side: every step's state and the final state bit for bit; (b) two gloo
+    ranks sharing the card, 4 rows each: bit for bit with each other after
+    every step, against (a) at the dryrun's tolerances after step 1 (the
+    loss within 1e-3 relative), K1 and K2 18 times per rank per step, K3
+    never, rank 0 alone evaluating; (c) (b)'s checkpoint resumed on one
+    NCCL rank, and (a)'s on two gloo ranks and on the one-process trainer:
+    the state bit for bit, the next step's loss finite, and that full-phase
+    step on two ranks against the one-process trainer's at the dryrun's
+    tolerances.  Prints ms per step per rank, the gloo all-reduce's share
+    of a step and peak memory per rank.  Returns the phase's launches."""
+    start = time.perf_counter()
+    # The ranks need the card's memory that earlier phases left cached.
+    gc.collect()
+    torch.cuda.empty_cache()
+    lr = BAIR_CONFIG["training"]["learning_rate"]
+    plain = RankGroup(root, "plain", 0, "cuda", None, max_steps=DP_STEPS, dump_steps=[1])
+    nccl = RankGroup(root, "nccl", 1, "cuda", "nccl", max_steps=DP_STEPS, dump_steps=[1])
+    (plain_result,), (nccl_result,) = wait_all(plain, nccl)
+    gloo = RankGroup(root, "gloo", 2, "cuda:0", "gloo", max_steps=DP_STEPS, dump_steps=[1])
+    (gloo_results,) = wait_all(gloo)
+
+    want_step = {"convlstm_gates": 3 * (LOOP_FRAMES - 1),
+                 "convlstm_gates_bwd": 3 * (LOOP_FRAMES - 1), "fused_norm_act": 0}
+    for result, rows in ((plain_result, LOOP_BATCH), (nccl_result, LOOP_BATCH),
+                         *((r, LOOP_BATCH // 2) for r in gloo_results)):
+        require([s["step"] for s in result["steps"]] == list(range(1, DP_STEPS + 1)),
+                result["steps"])
+        for s in result["steps"]:
+            require(s["launches"] == want_step and s["rows"] == rows and np.isfinite(s["loss"])
+                    and s["pretraining"] == float(s["step"] == 1), s)
+    require(nccl_result["process"] == [0, 1, 0, 1] and
+            [r["process"] for r in gloo_results] == [[0, 2, 0, 2], [1, 2, 1, 2]],
+            (nccl_result["process"], [r["process"] for r in gloo_results]))
+    # (a) One NCCL rank: the collectives are identities.
+    for got, want in zip(nccl_result["steps"], plain_result["steps"]):
+        require(got["digest"] == want["digest"] and got["loss"] == want["loss"],
+                f"one NCCL rank differs from the one-process trainer at step {got['step']}")
+    require(nccl_result["digests"]["final"] == plain_result["digests"]["final"],
+            "one NCCL rank's final state differs from the one-process trainer's")
+    emit(phase="data_parallel_one_rank", backend="nccl", steps=DP_STEPS, bit_exact=True,
+         losses=[s["loss"] for s in nccl_result["steps"]],
+         peak_memory_gib=nccl_result["peak_memory_gib"])
+    # (b) Two gloo ranks on the one card.
+    for s0, s1 in zip(*(r["steps"] for r in gloo_results)):
+        require(s0["digest"] == s1["digest"] and s0["loss"] == s1["loss"],
+                f"the two ranks' states differ after step {s0['step']}")
+    require(gloo_results[0]["digests"]["final"] == gloo_results[1]["digests"]["final"],
+            "the two ranks' final states differ")
+    require_loss_close(gloo_results[0]["steps"][0], nccl_result["steps"][0])
+    pretraining_share = compare_with_one_rank(gloo, nccl, 1, lr)
+    require(len(gloo_results[0]["evaluation_forwards"]) == 3
+            and not gloo_results[1]["evaluation_forwards"],
+            "rank 0 alone must evaluate (3 passes of 1 batch)")
+    step_ms = [[s["seconds"] * 1e3 for s in r["steps"] if s["step"] in DP_TIMED_STEPS]
+               for r in gloo_results]
+    median_ms = [statistics.median(ms) for ms in step_ms]
+    card = nvidia_smi()
+    emit(phase="data_parallel_two_ranks", backend="gloo", shared_card=True,
+         rows_per_rank=LOOP_BATCH // 2, frames=LOOP_FRAMES, bit_exact_between_ranks=True,
+         step1_loss=gloo_results[0]["steps"][0]["loss"],
+         step1_loss_one_rank=nccl_result["steps"][0]["loss"],
+         step1_share_of_dryrun_tolerance=pretraining_share, launches_per_rank_step=want_step,
+         ms_per_step_median=median_ms, ms_per_step_range=[[min(ms), max(ms)] for ms in step_ms],
+         collectives_per_step=gloo_results[0]["collectives"],
+         collective_elements_per_step=gloo_results[0]["collective_elements"],
+         allreduce_replay_ms=[r["collective_replay_ms"] for r in gloo_results],
+         allreduce_share_of_step=[r["collective_replay_ms"] / ms
+                                  for r, ms in zip(gloo_results, median_ms)],
+         peak_memory_gib=[r["peak_memory_gib"] for r in gloo_results],
+         one_rank_peak_memory_gib=nccl_result["peak_memory_gib"], nvidia_smi=card)
+
+    # (c) Elastic resume: two ranks' checkpoint on one rank, one rank's on
+    # two and on the one-process trainer.
+    resume_step = DP_STEPS + 1
+    runs = (("resume_on_one", gloo, 1, "cuda", "nccl"),
+            ("resume_on_two", nccl, 2, "cuda:0", "gloo"),
+            ("resume_plain", nccl, 0, "cuda", None))
+    for name, source, *_ in runs:
+        shutil.copytree(os.path.join(source.root, "checkpoints"),
+                        os.path.join(root, name, "checkpoints"))
+    groups = {name: RankGroup(root, name, world, device, backend, max_steps=resume_step,
+                              dump_steps=[resume_step])
+              for name, _, world, device, backend in runs}
+    resumed = dict(zip(groups, wait_all(*groups.values())))
+    for name, source_result in (("resume_on_one", gloo_results[0]),
+                                ("resume_on_two", nccl_result), ("resume_plain", nccl_result)):
+        for result in resumed[name]:
+            require(result["digests"]["resumed"] == source_result["digests"]["final"],
+                    f"{name}: the resumed state differs from the saved one")
+            require([s["step"] for s in result["steps"]] == [resume_step]
+                    and np.isfinite(result["steps"][0]["loss"]), (name, result["steps"]))
+        require(len({r["digests"]["final"] for r in resumed[name]}) == 1,
+                f"{name}: the ranks' states differ after the resumed step")
+    require_loss_close(resumed["resume_on_two"][0]["steps"][0],
+                       resumed["resume_plain"][0]["steps"][0])
+    full_share = compare_with_one_rank(groups["resume_on_two"], groups["resume_plain"],
+                                       resume_step, lr)
+    emit(phase="data_parallel_resume", bit_exact=True,
+         two_to_one_loss=resumed["resume_on_one"][0]["steps"][0]["loss"],
+         one_to_two_loss=resumed["resume_on_two"][0]["steps"][0]["loss"],
+         one_process_loss=resumed["resume_plain"][0]["steps"][0]["loss"],
+         full_step_share_of_dryrun_tolerance=full_share)
+
+    launches = dict.fromkeys(want_step, 0)
+    for result in (plain_result, nccl_result, *gloo_results,
+                   *itertools.chain.from_iterable(resumed.values())):
+        for name, count in result["launches"].items():
+            launches[name] += count
+    emit(phase="data_parallel", seconds=time.perf_counter() - start, launches=launches,
+         nvidia_smi=card)
+    return launches
+
+
 def kernel_group(name: str) -> str:
     return next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)), "other")
 
@@ -2522,6 +2895,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is False; it needs an "
                  "NVIDIA GPU")
+    if sys.argv[1:2] == ["--data-parallel-rank"]:  # a process of phase 15
+        data_parallel_rank(sys.argv[2])
+        return
     card = nvidia_smi()
     emit(phase="device", nvidia_smi=card, name=torch.cuda.get_device_name(0),
          torch=torch.__version__, cuda=torch.version.cuda)
@@ -2564,12 +2940,14 @@ def main() -> None:
         distribution_metrics(root, eval_config, pair)
         soak_launches = convergence_soak_phase(root, gen)
         detector_phase(root)
+        parallel_launches = data_parallel_phase(root)
 
     kernels = [dict(name=name, route="cuda",
                     source=f"playablevideogeneration_tpu_torch/ops/cuda/csrc/{source}.cu",
                     replaces=replaces,
                     launches=(play_launches[name] + train_launches[name] + loop_launches[name]
-                              + after_launches[name] + soak_launches[name]),
+                              + after_launches[name] + soak_launches[name]
+                              + parallel_launches[name]),
                     max_abs_err=errors[name], ms=sums[name]["ms"],
                     cold_ms=sums[name]["cold_ms"],
                     plain_ms=sums[name]["plain_ms"], bound_ms=sums[name]["bound_ms"],

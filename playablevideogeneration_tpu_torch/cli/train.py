@@ -6,18 +6,28 @@ without a GPU the default raises instead of moving to the CPU:
 
     python -m playablevideogeneration_tpu_torch.cli.train --config configs/01_bair.yaml
 
+On G GPUs of one machine, data-parallel with the JAX trainer's
+global-batch semantics (the config's ``batch_size`` split over the GPUs;
+``tpu.data_parallel_devices``, when set, must be G):
+
+    torchrun --nproc_per_node=G -m playablevideogeneration_tpu_torch.cli.train \
+        --config configs/01_bair.yaml
+
 A run resumes from its ``latest`` checkpoint when there is one, saves
 ``latest`` after every epoch and ``checkpoint_<step>`` every ``save_freq``
 steps, and evaluates on the validation split every ``eval_freq`` steps:
 with the Gumbel sampler, and when the data carries ground-truth actions
 also with the one-hot sampler and the ground-truth sampler through the
-Hungarian mapping.
+Hungarian mapping.  In a data-parallel run rank 0 evaluates while the
+other ranks wait, and only rank 0 prints, logs and writes checkpoints.
 """
 from __future__ import annotations
 
 import argparse
 import os
 from typing import Mapping, Optional
+
+import torch.distributed as dist
 
 from playablevideogeneration_tpu_torch.config import registry
 from playablevideogeneration_tpu_torch.config.configuration import Configuration
@@ -28,6 +38,7 @@ from playablevideogeneration_tpu_torch.evaluation.action_sampler import (
     make_ground_truth_action_sampler,
     one_hot_action_sampler,
 )
+from playablevideogeneration_tpu_torch.parallel import mesh
 from playablevideogeneration_tpu_torch.utils import checkpoint as ckpt_lib
 from playablevideogeneration_tpu_torch.utils.device import DeviceLike, resolve_device
 from playablevideogeneration_tpu_torch.utils.logging import Logger
@@ -46,7 +57,8 @@ def build_run(config_dict: dict, use_wandb: bool = False, logger: Optional[Logge
     """
     registry._register_defaults()
     if logger is None:
-        logger = Logger(config_dict, use_wandb=use_wandb)
+        logger = Logger(config_dict, use_wandb=use_wandb,
+                        enabled=mesh.process_info().rank == 0)
     device = resolve_device(device)
     seed = config_dict.get("seed", 0)
 
@@ -114,18 +126,28 @@ def train(config_dict: dict, use_wandb: bool = False, max_steps: Optional[int] =
 
         if eval_freq and trainer.global_step - last_eval >= eval_freq:
             last_eval = trainer.global_step
-            validation = evaluators["validation"]
-            validation.set_action_sampler(None)
-            validation.evaluate(trainer.global_step)
-            if config_dict["data"]["ground_truth_available"]:
-                validation.set_action_sampler(one_hot_action_sampler, label="one_hot")
-                validation.evaluate(trainer.global_step, save_images=False)
-                mapping = validation.get_best_action_mappings()
-                validation.set_action_sampler(make_ground_truth_action_sampler(mapping),
-                                              label="gt_actions")
-                validation.evaluate(trainer.global_step, save_images=False)
+            if trainer.process.rank == 0:
+                evaluate(evaluators["validation"], trainer.global_step,
+                         config_dict["data"]["ground_truth_available"])
+            if trainer.distributed:
+                mesh.barrier()
     logger.print("- Training complete")
     return trainer
+
+
+def evaluate(validation, step: int, ground_truth_available: bool) -> None:
+    """The in-training evaluation at ``step``: with the Gumbel sampler, and
+    when the data carries ground-truth actions also with the one-hot
+    sampler and the ground-truth sampler through the Hungarian mapping."""
+    validation.set_action_sampler(None)
+    validation.evaluate(step)
+    if ground_truth_available:
+        validation.set_action_sampler(one_hot_action_sampler, label="one_hot")
+        validation.evaluate(step, save_images=False)
+        mapping = validation.get_best_action_mappings()
+        validation.set_action_sampler(make_ground_truth_action_sampler(mapping),
+                                      label="gt_actions")
+        validation.evaluate(step, save_images=False)
 
 
 def main():
@@ -133,13 +155,19 @@ def main():
     parser.add_argument("--config", type=str, required=True)
     parser.add_argument("--wandb", action="store_true")
     parser.add_argument("--device", type=str, default="cuda",
-                        help="torch device to train on (default: cuda)")
+                        help="torch device to train on (default: cuda; under torchrun "
+                             "cuda:LOCAL_RANK)")
     args = parser.parse_args()
 
-    configuration = Configuration(args.config)
-    configuration.check_config()
-    configuration.create_directory_structure()
-    train(configuration.get_config(), use_wandb=args.wandb, device=args.device)
+    device = mesh.init_distributed(args.device)
+    try:
+        configuration = Configuration(args.config)
+        configuration.check_config()
+        configuration.create_directory_structure()
+        train(configuration.get_config(), use_wandb=args.wandb, device=device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -14,7 +14,12 @@ Workers read, transform and collate batches ahead of the training loop:
   not do.
 
 Sharding: every process shuffles with the same seed and takes the strided
-slice ``shard_index::shard_count`` of the epoch.
+slice ``shard_index::shard_count`` of the epoch, as a JAX process does.  A
+data-parallel node is such a process, and each of its ``local_world``
+ranks then takes the contiguous rows ``[l * b / L, (l + 1) * b / L)`` of
+every batch of ``b`` (``l`` its local rank), as a JAX process's devices
+take their slices of its batch: the ranks' rows in rank order are the
+node's batch.
 """
 from __future__ import annotations
 
@@ -49,14 +54,19 @@ def _collate_arrays(indices) -> Batch:
 
 class DataLoader:
     """Iterates shuffled, collated batches with background prefetch; an
-    incomplete last batch is dropped when ``drop_last``."""
+    incomplete last batch is dropped when ``drop_last``.  With
+    ``local_world`` above 1 each batch holds this rank's ``batch_size /
+    local_world`` rows of it."""
 
     def __init__(self, dataset: VideoDataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, num_workers: int = 2, prefetch: int = 2,
                  seed: int = 0, worker_mode: str = "thread", shard_index: int = 0,
-                 shard_count: int = 1):
+                 shard_count: int = 1, local_rank: int = 0, local_world: int = 1):
         if worker_mode not in ("thread", "process"):
             raise ValueError(f"Unknown worker_mode '{worker_mode}'")
+        if batch_size % local_world or not (drop_last or local_world == 1):
+            raise ValueError(f"a batch of {batch_size} does not split into equal rows for "
+                             f"{local_world} ranks (drop_last={drop_last})")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -66,6 +76,8 @@ class DataLoader:
         self.worker_mode = worker_mode
         self.shard_index = shard_index
         self.shard_count = max(1, shard_count)
+        rows = batch_size // local_world
+        self.rows = slice(local_rank * rows, (local_rank + 1) * rows)
         self._rng = np.random.default_rng(seed)
 
     def __len__(self) -> int:
@@ -83,7 +95,7 @@ class DataLoader:
         limit = ((len(indices) // self.batch_size) * self.batch_size if self.drop_last
                  else len(indices))
         for start in range(0, limit, self.batch_size):
-            yield indices[start:start + self.batch_size]
+            yield indices[start:start + self.batch_size][self.rows]
 
     def _iter_process(self, batches) -> Iterator[Batch]:
         import multiprocessing as mp

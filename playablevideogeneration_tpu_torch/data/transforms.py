@@ -6,10 +6,14 @@ frame becomes an (H', W', 3) float32 array, in [-1, 1] for the model and
 in [0, 1] for the offline evaluation's metrics.  The crop is array
 slicing; a frame is resized only when its size differs from the target,
 with Pillow's bilinear filter, as the JAX transform resizes it, so the two
-give the same arrays.
+give the same arrays.  ``sample_augmentation_transform`` is the JAX
+package's random affine augmentation (the reference's, which its shipped
+configs leave unused), on arrays.
 """
 from __future__ import annotations
 
+import math
+import random
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -33,6 +37,48 @@ def check_and_resize(target_crop: Optional[List[int]], target_size: Sequence[int
             frame = np.asarray(Image.fromarray(np.ascontiguousarray(frame)).resize(
                 (width, height), Image.BILINEAR))
         return frame
+
+    return transform
+
+
+def to_array(frame: np.ndarray) -> np.ndarray:
+    """(H, W, 3) uint8 frame -> float32 in [0, 1]."""
+    return np.asarray(frame, dtype=np.float32) / 255.0
+
+
+def sample_augmentation_transform(batching_config: Dict, rng: Optional[random.Random] = None
+                                  ) -> Callable[[np.ndarray], np.ndarray]:
+    """Samples one random affine augmentation, the same for every frame it
+    is applied to: rotation about the frame's centre, translation and
+    uniform scale, resampled bilinearly by Pillow, as the JAX package's
+    (the same ``random.Random`` state gives the same pixels).
+
+    :param batching_config: ``rotation_range`` (degrees),
+        ``translation_range`` (pixels) and ``scale_range``, each a (low,
+        high) pair
+    :param rng: the source of the four draws (default: ``random``'s)
+    :return: (H, W, 3) uint8 frame -> the transformed uint8 frame
+    """
+    rng = rng or random
+    tx = rng.uniform(*batching_config["translation_range"])
+    ty = rng.uniform(*batching_config["translation_range"])
+    angle = rng.uniform(*batching_config["rotation_range"])
+    scale = rng.uniform(*batching_config["scale_range"])
+
+    def transform(frame: np.ndarray) -> np.ndarray:
+        from PIL import Image
+
+        image = Image.fromarray(np.ascontiguousarray(frame))
+        # Pillow maps output to input pixels: the inverse of the rotation
+        # about the centre composed with the translation and the scale.
+        cx, cy = image.size[0] * 0.5, image.size[1] * 0.5
+        a = math.cos(math.radians(angle)) / scale
+        b = math.sin(math.radians(angle)) / scale
+        matrix = [a, b, 0.0, -b, a, 0.0]
+        matrix[2] += matrix[0] * (-cx - tx) + matrix[1] * (-cy - ty) + cx
+        matrix[5] += matrix[3] * (-cx - tx) + matrix[4] * (-cy - ty) + cy
+        return np.asarray(image.transform(image.size, Image.AFFINE, matrix,
+                                          resample=Image.BILINEAR))
 
     return transform
 

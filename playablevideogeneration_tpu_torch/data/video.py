@@ -7,13 +7,14 @@ reference's on-disk format: a directory of zero-padded frame images
 with transparency flattened onto white.
 
 A frame is an (H, W, 3) uint8 array.  Pillow is imported only where a
-frame file is read or written, so videos built in memory need no Pillow.
+frame file is read, written or resized, so videos built in memory need no
+Pillow.
 """
 from __future__ import annotations
 
 import os
 import pickle
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -131,3 +132,27 @@ class Video:
                 pickle.dump(list(values), f)
         self.root = path
         return self
+
+    def subsample_split_resize(self, frame_skip: int, output_sequence_length: int,
+                               target_size: Optional[Sequence[int]] = None) -> List["Video"]:
+        """Keeps every ``frame_skip + 1``-th frame, cuts the kept frames into
+        in-memory videos of ``output_sequence_length`` (a short remainder
+        dropped), each frame resized to ``target_size`` (width, height) with
+        Pillow's bilinear filter where its size differs."""
+        indexes = list(range(0, self.get_frames_count(), frame_skip + 1))
+        chunks = []
+        step = output_sequence_length
+        for start in range(0, len(indexes) - step + 1, step):
+            selected = indexes[start:start + step]
+            frames = []
+            for i in selected:
+                frame = self.get_frame_at(i)
+                if target_size is not None and frame.shape[1::-1] != tuple(target_size):
+                    Image = pillow_image("resizing a frame")
+                    frame = np.asarray(Image.fromarray(frame).resize(tuple(target_size),
+                                                                     Image.BILINEAR))
+                frames.append(frame)
+            chunks.append(Video().add_content(
+                frames, [self.actions[i] for i in selected], [self.rewards[i] for i in selected],
+                [self.metadata[i] for i in selected], [self.dones[i] for i in selected]))
+        return chunks

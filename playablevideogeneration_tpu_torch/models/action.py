@@ -16,14 +16,17 @@ import torch
 from torch import nn
 
 from playablevideogeneration_tpu_torch.models.layers import Linear, ResidualBlock
+from playablevideogeneration_tpu_torch.parallel import mesh
 from playablevideogeneration_tpu_torch.utils import tensor_ops as tops
 
 
 def reparameterized_sample(generator: torch.Generator, mean: torch.Tensor,
                            variance: torch.Tensor) -> torch.Tensor:
     """noise * sqrt(variance) + mean, noise ~ N(0, 1) drawn in f32 on the
-    generator's device."""
-    noise = torch.randn(mean.shape, generator=generator, device=generator.device)
+    generator's device; in a data-parallel step this rank's rows of the
+    global batch's draw (dim 0 is batch-major)."""
+    noise = mesh.global_rows(
+        lambda s: torch.randn(s, generator=generator, device=generator.device), mean.shape)
     return noise.to(device=mean.device, dtype=mean.dtype) * torch.sqrt(variance) + mean
 
 

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from playablevideogeneration_tpu_torch.parallel import mesh
+
 
 def init_centroids(generator: torch.Generator, centroids_count: int,
                    space_dimensions: int) -> torch.Tensor:
@@ -19,7 +21,9 @@ def init_centroids(generator: torch.Generator, centroids_count: int,
 def update_centroids(centroids: torch.Tensor, points_priors: torch.Tensor,
                      centroid_assignments: torch.Tensor, alpha: float) -> torch.Tensor:
     """EMA update from soft-assignment weighted means, in f32 whatever the
-    compute dtype.
+    compute dtype, over the global batch in a data-parallel step (the
+    weighted sums and the weights reduced over the ranks before the
+    division), so every rank keeps the same centroids.
 
     :param centroids: (K, D) current estimates
     :param points_priors: (..., 2, D) per-point (mean, variance)
@@ -29,7 +33,8 @@ def update_centroids(centroids: torch.Tensor, points_priors: torch.Tensor,
     k, d = centroids.shape
     means = points_priors.reshape(-1, 2, d)[:, 0].float()
     assign = centroid_assignments.reshape(-1, k).float()
-    estimate = (assign.t() @ means) / assign.sum(dim=0)[:, None]
+    sums = mesh.sum_over_ranks(torch.cat([(assign.t() @ means).flatten(), assign.sum(dim=0)]))
+    estimate = sums[:k * d].view(k, d) / sums[k * d:, None]
     new = centroids.float() * (1.0 - alpha) + estimate * alpha
     return new.to(centroids.dtype)
 

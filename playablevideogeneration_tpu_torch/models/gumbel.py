@@ -9,13 +9,17 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from playablevideogeneration_tpu_torch.parallel import mesh
+
 _EPS = 1e-20
 
 
 def gumbel_noise(generator: torch.Generator, shape, device: torch.device) -> torch.Tensor:
     """Standard Gumbel noise -log(-log(U + eps) + eps), U ~ U[0, 1), the
-    reference's construction (gumbel_softmax.py:26-35), in f32."""
-    u = torch.rand(shape, generator=generator, device=generator.device)
+    reference's construction (gumbel_softmax.py:26-35), in f32; in a
+    data-parallel step this rank's rows of the global batch's draw."""
+    u = mesh.global_rows(
+        lambda s: torch.rand(s, generator=generator, device=generator.device), shape)
     return (-torch.log(-torch.log(u + _EPS) + _EPS)).to(device)
 
 

@@ -35,6 +35,7 @@ from playablevideogeneration_tpu_torch.ops.cuda.fused_norm_act import (
     NEGATIVE_SLOPE,
     fused_batch_norm_leaky_relu,
 )
+from playablevideogeneration_tpu_torch.parallel import mesh
 
 EPS = 1e-5
 # flax's BatchNorm(momentum=0.9) keeps 0.9 of the running statistic per
@@ -114,8 +115,11 @@ class BatchNorm(nn.Module):
 
     In training mode (the module's ``training`` flag) it normalises with
     the batch statistics, computed as flax computes them: in f32, the
-    variance as E[x^2] - E[x]^2 clipped at 0.  It then folds the batch
-    mean and the *biased* batch variance into the running statistics,
+    variance as E[x^2] - E[x]^2 clipped at 0, over the global batch in a
+    data-parallel step (the sums reduced over the ranks by
+    ``parallel.mesh.all_reduce_sum``, as GSPMD reduces them over the
+    devices), so every rank folds the same statistics.  It then folds the
+    batch mean and the *biased* batch variance into the running statistics,
     ``0.9 * running + 0.1 * batch`` (torch's BatchNorm2d would fold the
     unbiased variance), unless ``update_statistics`` is off (see
     ``frozen_statistics``).  The normalisation runs in f32 and is cast to
@@ -151,8 +155,11 @@ class BatchNorm(nn.Module):
     def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         axes = (0, 2, 3)
-        mean = xf.mean(dim=axes)
-        var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+        # The sums of x and x^2 over the global batch (one collective, a
+        # copy outside a data-parallel step), then the global count.
+        sums = mesh.all_reduce_sum(torch.cat([xf.sum(dim=axes), (xf * xf).sum(dim=axes)]))
+        mean, mean_square = (sums / (xf.numel() // xf.shape[1] * mesh.world_size())).chunk(2)
+        var = torch.clamp(mean_square - mean * mean, min=0.0)
         if self.update_statistics:
             with torch.no_grad():
                 self.running_mean.copy_(MOMENTUM * self.running_mean
@@ -171,7 +178,9 @@ def frozen_statistics(module: nn.Module) -> Iterator[None]:
     normalises with its batch statistics but leaves its running statistics
     as they are.  Activation checkpointing reruns a step's forward in the
     backward pass under this context, so the statistics are folded once
-    per step, as in the JAX scan."""
+    per step, as in the JAX scan.  In a data-parallel step the rerun
+    reduces its sums over the ranks again: every rank reruns the same
+    steps in the same order, so the collectives pair up."""
     norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
     previous = [m.update_statistics for m in norms]
     for m in norms:

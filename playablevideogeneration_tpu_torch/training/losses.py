@@ -13,6 +13,7 @@ from typing import Callable, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from playablevideogeneration_tpu_torch.parallel import mesh
 from playablevideogeneration_tpu_torch.utils import tensor_ops as tops
 
 _EPS = sys.float_info.epsilon
@@ -128,9 +129,10 @@ def entropy_probabilities(probabilities: torch.Tensor) -> torch.Tensor:
 def joint_probability_matrix(distribution_1: torch.Tensor,
                              distribution_2: torch.Tensor) -> torch.Tensor:
     """Symmetrised, normalised (A, A) joint probability matrix of two sets
-    of categorical samples."""
+    of categorical samples; in a data-parallel step the global batch's, the
+    unnormalised joint summed over the ranks before the normalisation."""
     dim = distribution_1.shape[-1]
-    p = distribution_1.reshape(-1, dim).t() @ distribution_2.reshape(-1, dim)
+    p = mesh.all_reduce_sum(distribution_1.reshape(-1, dim).t() @ distribution_2.reshape(-1, dim))
     p = (p + p.t()) / 2.0
     return p / p.sum()
 

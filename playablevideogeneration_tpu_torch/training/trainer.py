@@ -11,20 +11,31 @@ annealing schedules, logging, the optional gradient histograms, profiler
 window and action-space plots; ``save_checkpoint`` and ``load_checkpoint``
 write and read the training state, and ``load_reference_weights`` imports
 a reference ``.pth.tar``'s weights.
+
+With a process group (``parallel.mesh.init_distributed``) the trainer is
+one rank of a data-parallel run with the JAX trainer's global-batch
+semantics: its loader yields this rank's rows of its node's batch, the
+step runs inside ``parallel.mesh.global_batch`` (global BatchNorm
+statistics, mutual-information joint, centroid EMA, noise and
+diagnostics), the gradients are averaged over the ranks before Adam, and
+only rank 0 writes checkpoints, plots and profiler traces.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from playablevideogeneration_tpu_torch.data.loader import DataLoader
 from playablevideogeneration_tpu_torch.models.caddy import Caddy
 from playablevideogeneration_tpu_torch.models.centroids import average_centroid_distance
 from playablevideogeneration_tpu_torch.models.vgg import Vgg19, make_vgg
+from playablevideogeneration_tpu_torch.parallel import mesh
 from playablevideogeneration_tpu_torch.training import losses, schedules
 from playablevideogeneration_tpu_torch.training.train_state import TrainState
 from playablevideogeneration_tpu_torch.utils import checkpoint as ckpt_lib
@@ -128,7 +139,7 @@ def compute_loss_terms(model: Caddy, observations: torch.Tensor, actions: torch.
         entropy_loss=entropy_loss,
         samples_entropy=losses.entropy_probabilities(out.action_samples),
         action_distribution_entropy=losses.entropy_probabilities(
-            out.action_samples.mean(dim=(0, 1))[None]),
+            mesh.mean_over_ranks(out.action_samples.mean(dim=(0, 1)))[None]),
         states_magnitude=torch.mean(torch.abs(out.states)),
         hidden_states_magnitude=torch.mean(torch.abs(out.hidden_states)),
         action_directions_mean_magnitude=torch.mean(torch.abs(dirs[:, :, 0])),
@@ -179,17 +190,32 @@ class Trainer:
         random VGG and the loader's shuffle
     :param dataset: the training ``VideoDataset`` that ``train_epoch``
         iterates; ``train_step`` alone needs none
-    :param logger: a ``utils.logging.Logger`` (default: stdout only)
+    :param logger: a ``utils.logging.Logger`` (default: stdout only, on
+        rank 0)
+
+    ``tpu.model_parallel`` above 1 raises, and so does a
+    ``tpu.data_parallel_devices`` other than the ranks on this node.
     """
 
     def __init__(self, config: dict, model: Caddy, smooth_mi: bool = False,
                  vgg: Optional[Vgg19] = None, seed: int = 0, dataset=None,
                  logger: Optional[Logger] = None):
+        tpu = config.get("tpu", {})
+        if tpu.get("model_parallel", 1) > 1:
+            raise NotImplementedError(
+                "tpu.model_parallel > 1 (tensor parallelism) is not ported: ROADMAP.md, "
+                "Queue 1, tensor parallelism")
+        self.process = mesh.process_info()
+        self.distributed = dist.is_initialized()
+        devices = tpu.get("data_parallel_devices")
+        if devices is not None and devices != self.process.local_world:
+            raise ValueError(f"tpu.data_parallel_devices is {devices}, but "
+                             f"{self.process.local_world} rank(s) run on this node")
         self.config = config
         self.model = model
         self.smooth_mi = smooth_mi
         self.dataset = dataset
-        self.logger = logger if logger is not None else Logger()
+        self.logger = logger if logger is not None else Logger(enabled=self.process.rank == 0)
         self.device = model.centroids.device
         if vgg is None:
             variables, found = pretrained.get_vgg_variables(config, self.logger)
@@ -210,30 +236,38 @@ class Trainer:
             use_motion_weights=t.get("use_motion_weights", False),
             motion_weights_bias=t.get("motion_weights_bias", 0.0),
             mi_alpha=t.get("mutual_information_estimation_alpha", 0.2) if smooth_mi else None)
-        tpu = config.get("tpu", {})
         # Per-subnetwork gradient histograms, computed on the device (off by
         # default; the gradient norms are always on).
         self.grad_histograms = tpu.get("grad_histograms", False)
         self.dataloader = None
         if dataset is not None:
-            batching = t["batching"]
+            # A node loads the JAX process's shard of the epoch, and each of
+            # its ranks takes its contiguous rows of every batch.
+            batching, process = t["batching"], self.process
             self.dataloader = DataLoader(
                 dataset, batch_size=batching["batch_size"], shuffle=True, drop_last=True,
                 num_workers=batching["num_workers"], prefetch=tpu.get("prefetch_batches", 2),
-                seed=seed, worker_mode=batching.get("worker_mode", "thread"))
+                seed=seed, worker_mode=batching.get("worker_mode", "thread"),
+                shard_index=process.node, shard_count=process.nodes,
+                local_rank=process.local_rank, local_world=process.local_world)
         self.average_meter = AverageMeter()
         # The action-space plots' inputs of the last step, on the device.
         self.plot_arrays: Dict[str, torch.Tensor] = {}
         # A profiler trace of 5 steps from the third step of the first
-        # epoch, into tpu.profile_dir (or PVG_PROFILE_DIR) when it is set.
-        self.profile_dir = tpu.get("profile_dir") or os.environ.get("PVG_PROFILE_DIR")
+        # epoch, into tpu.profile_dir (or PVG_PROFILE_DIR) when it is set,
+        # by rank 0.
+        self.profile_dir = ((tpu.get("profile_dir") or os.environ.get("PVG_PROFILE_DIR"))
+                            if self.process.rank == 0 else None)
         self._profiler = None
         self._profile_stop_at = 0
 
     def init_state(self) -> TrainState:
         """Puts the model in training mode and builds the optimizer, the
-        learning-rate schedule and the uniform MI matrix."""
+        learning-rate schedule and the uniform MI matrix; with a process
+        group, rank 0's parameters and buffers first replace every rank's."""
         self.model.train()
+        if self.distributed:
+            mesh.broadcast_from_rank0(self.model)
         optimizer, scheduler = schedules.make_optimizer(self.config, self.model.parameters())
         self.state = TrainState(
             model=self.model, optimizer=optimizer, scheduler=scheduler,
@@ -248,16 +282,24 @@ class Trainer:
 
     def save_checkpoint(self, name: Optional[str] = None) -> None:
         """Saves the training state as ``name`` (default ``latest``) under
-        the run's save directory."""
-        ckpt_lib.save_checkpoint(self._checkpoint_path(name), self.state.state_dict())
+        the run's save directory: rank 0 writes it, every rank's state being
+        the same, and the others wait for it."""
+        if self.process.rank == 0:
+            ckpt_lib.save_checkpoint(self._checkpoint_path(name), self.state.state_dict())
+        if self.distributed:
+            mesh.barrier()
 
     def load_checkpoint(self, name: Optional[str] = None) -> None:
         """Restores the training state saved as ``name`` (default
-        ``latest``) into the state ``init_state`` built, and the step."""
+        ``latest``) into the state ``init_state`` built, and the step.
+        Every rank reads the file to the CPU and copies it to its device,
+        whatever count of ranks wrote it."""
         if self.state is None:
             raise RuntimeError("call init_state first")
         self.state.load_state_dict(ckpt_lib.restore_checkpoint(self._checkpoint_path(name)))
         self.global_step = self.state.step
+        if self.distributed:
+            mesh.barrier()
 
     def load_reference_weights(self, path: str) -> None:
         """Imports the model's weights from a reference ``.pth.tar``
@@ -315,19 +357,29 @@ class Trainer:
         lr = state.scheduler.get_last_lr()[0]
 
         state.optimizer.zero_grad(set_to_none=True)
-        total, aux = compute_loss_terms(
-            self.model, observations, actions, gt_init, gumbel_t, self.generator, self.vgg,
-            pretraining=pretraining, mi_matrix=state.mi_matrix if self.smooth_mi else None,
-            **self._loss_kwargs)
-        total.backward()
+        global_batch = (mesh.global_batch(self.process) if self.distributed
+                        else contextlib.nullcontext())
+        with global_batch:
+            total, aux = compute_loss_terms(
+                self.model, observations, actions, gt_init, gumbel_t, self.generator,
+                self.vgg, pretraining=pretraining,
+                mi_matrix=state.mi_matrix if self.smooth_mi else None, **self._loss_kwargs)
+            total.backward()
 
-        # A parameter the phase does not use (state_to_hidden in the full
-        # phase) takes a zero gradient, so that Adam decays it as optax does.
-        modules: Dict[str, list] = {}
-        for name, p in self.model.named_parameters():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-            modules.setdefault(name.split(".")[0], []).append(p.grad)
+            # A parameter the phase does not use (state_to_hidden in the
+            # full phase) takes a zero gradient, so that Adam decays it as
+            # optax does.
+            modules: Dict[str, list] = {}
+            for name, p in self.model.named_parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                modules.setdefault(name.split(".")[0], []).append(p.grad)
+            if self.distributed:
+                mesh.all_reduce_gradients(self.model.parameters(), self.process.world)
+            # The rank's losses and diagnostics are means over its rows (or
+            # global already): their mean over the ranks is the global one.
+            local = dict(aux["info"], loss=total.detach())
+            averaged = mesh.mean_over_ranks(torch.stack([v.float() for v in local.values()]))
         squares = {m: torch.stack(torch._foreach_norm(g)).square().sum()
                    for m, g in modules.items()}
         histograms = {}
@@ -341,13 +393,11 @@ class Trainer:
         state.step += 1
         self.plot_arrays = aux["plot_arrays"]
 
-        metrics = dict(aux["info"])
-        metrics["loss"] = total.detach()
-        metrics["grad_norm/global"] = torch.sqrt(sum(squares.values()))
+        norms = {"grad_norm/global": torch.sqrt(sum(squares.values()))}
         for m, sq in squares.items():
-            metrics[f"grad_norm/{m}"] = torch.sqrt(sq)
-        values = torch.stack([v.float() for v in metrics.values()]).tolist()
-        metrics = dict(zip(metrics, values))
+            norms[f"grad_norm/{m}"] = torch.sqrt(sq)
+        values = torch.cat([averaged, torch.stack(list(norms.values()))]).tolist()
+        metrics = dict(zip(list(local) + list(norms), values))
         metrics.update(ground_truth_observations=gt_init, gumbel_temperature=gumbel_t,
                        observations_count=t, lr=lr, pretraining=float(pretraining))
         for m, (counts, edges) in histograms.items():
@@ -437,7 +487,7 @@ class Trainer:
             grad_hists = {k[len("_grad_hist/"):]: metrics.pop(k)
                           for k in list(metrics) if k.startswith("_grad_hist/")}
             plot_freq = t["action_direction_plotting_freq"]
-            if plot_freq and self.global_step % plot_freq == 0:
+            if plot_freq and self.global_step % plot_freq == 0 and self.process.rank == 0:
                 self._plot_action_space()
             if self.device.type == "cuda":
                 metrics["device_memory_mb"] = torch.cuda.memory_allocated(self.device) / 2 ** 20

@@ -1,7 +1,9 @@
 """Logging: stdout and, optionally, Weights & Biases.
 
 Counterpart of ``playablevideogeneration_tpu/utils/logging.py``.  wandb is
-optional; when it is missing or off the logger prints only.
+optional; when it is missing or off the logger prints only.  A logger
+built with ``enabled=False`` (every rank but rank 0 of a data-parallel
+run) prints and logs nothing.
 """
 from __future__ import annotations
 
@@ -32,10 +34,11 @@ class AverageMeter:
 
 class Logger:
     def __init__(self, config: Optional[dict] = None, use_wandb: bool = False,
-                 project: str = "video-generation"):
+                 project: str = "video-generation", enabled: bool = True):
         self.config = config
+        self.enabled = enabled
         self._wandb = None
-        if use_wandb:
+        if use_wandb and enabled:
             try:
                 import wandb
 
@@ -47,7 +50,8 @@ class Logger:
                 print(f"[logger] wandb unavailable ({e}); falling back to stdout")
 
     def print(self, *args, **kwargs):
-        print(*args, **kwargs, flush=True)
+        if self.enabled:
+            print(*args, **kwargs, flush=True)
 
     def histogram(self, np_histogram):
         """A (counts, bin edges) pair as a wandb Histogram; None when wandb
