@@ -171,13 +171,28 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    step's collectives replayed alone as the gloo all-reduce's share of the
    step, and peak memory per rank.  NCCL across several cards is not
    exercised: the machine has one.
+16. tensor-parallel training: phase 15's run with ``tpu.model_parallel``
+   2 at the default ``tp_min_channels`` 256, on two gloo ranks sharing the
+   card as a 1 x 2 mesh (both ranks on all 8 rows; the three ConvLSTM gate
+   convolutions and the dynamics network's 256-wide convolution hold half
+   their output channels per rank), every step deterministic: the ranks'
+   states (the sharded tensors gathered) bit for bit with each other after
+   every step and within the dryrun's tolerances of phase 15's
+   one-process trainer after step 1 (the loss within 1e-3 relative), K1
+   and K2 18 times per rank per step and K3 never, rank 0 alone evaluating
+   on a full-width copy; phase 15's NCCL checkpoint resumed on the mesh
+   bit for bit, its next full-phase step finite and within the dryrun's
+   tolerances of phase 15's one-process step from the same checkpoint.
+   Prints the sharded layers and the parameter bytes per rank, ms per step
+   per rank (median and range of steps 2-4), one step's collectives
+   replayed alone and their share of the step, and peak memory per rank.
 
 It prints JSON lines as it goes, then the kernels' summary line (``ms``,
 ``cold_ms``, ``plain_ms`` and ``bound_ms`` there are per step of the
 kernel's route: the sum over a bf16 play step's launches for K1 and K3,
 over a bf16 training step's 33 K2 launches for K2; ``launches`` counts
-phase 4's, 7's, 10's, 11's, 13's and 15's runs, without the f32 parity
-checks), the card's nvidia-smi line, and last ``{"ok": true, "device":
+phase 4's, 7's, 10's, 11's, 13's, 15's and 16's runs, without the f32
+parity checks), the card's nvidia-smi line, and last ``{"ok": true, "device":
 {...}}``.
 """
 from __future__ import annotations
@@ -1145,11 +1160,14 @@ class LoopRecorder:
 
 
 def state_snapshot(trainer: Trainer) -> dict:
-    """The training state, copied to the host: parameters and buffers,
-    Adam's slots and groups, the schedule, the MI matrix, the steps."""
-    optimizer = trainer.state.optimizer.state_dict()
+    """The training state in full tensors (under tensor parallelism every
+    rank of the model group gathers the sharded ones), copied to the host:
+    parameters and buffers, Adam's slots and groups, the schedule, the MI
+    matrix, the steps."""
+    state = trainer.state.state_dict()
+    optimizer = state["optimizer"]
     return dict(
-        model={k: v.detach().cpu().clone() for k, v in trainer.model.state_dict().items()},
+        model={k: v.detach().cpu().clone() for k, v in state["model"].items()},
         adam={(i, name): v.detach().cpu().clone() for i, slots in optimizer["state"].items()
               for name, v in slots.items()},
         param_groups=optimizer["param_groups"], scheduler=trainer.state.scheduler.state_dict(),
@@ -2510,13 +2528,18 @@ def data_parallel_rank(spec_path: str) -> None:
     device = mesh.init_distributed(spec["device"], backend=spec["backend"])
     rank = mesh.process_info().rank
     config = data_parallel_config(spec["root"])
+    config["tpu"]["model_parallel"] = spec.get("model_parallel", 1)
     datasets = loop_datasets(config)
     dumps, digests, collectives = {}, {}, []
-    all_reduce = torch.distributed.all_reduce
+    all_reduce, all_gather = torch.distributed.all_reduce, torch.distributed.all_gather
 
     def recording_all_reduce(tensor, *args, **kwargs):
-        collectives.append((tensor.numel(), str(tensor.dtype)))
+        collectives.append(("all_reduce", tensor.numel(), str(tensor.dtype)))
         return all_reduce(tensor, *args, **kwargs)
+
+    def recording_all_gather(tensors, tensor, *args, **kwargs):
+        collectives.append(("all_gather", tensor.numel(), str(tensor.dtype)))
+        return all_gather(tensors, tensor, *args, **kwargs)
 
     with LoopRecorder() as recorder:
         recorded_step, load_checkpoint = Trainer.train_step, Trainer.load_checkpoint
@@ -2526,11 +2549,13 @@ def data_parallel_rank(spec_path: str) -> None:
             torch.use_deterministic_algorithms(True)
             if record:
                 torch.distributed.all_reduce = recording_all_reduce
+                torch.distributed.all_gather = recording_all_gather
             try:
                 metrics = recorded_step(trainer, batch)
             finally:
                 torch.use_deterministic_algorithms(False)
-                torch.distributed.all_reduce = all_reduce
+                torch.distributed.all_reduce, torch.distributed.all_gather = (all_reduce,
+                                                                              all_gather)
             snapshot = state_snapshot(trainer)
             recorder.steps[-1].update(rows=len(batch.actions), digest=state_digest(snapshot))
             if trainer.global_step in spec["dump_steps"]:
@@ -2555,14 +2580,21 @@ def data_parallel_rank(spec_path: str) -> None:
     digests["final"] = state_digest(state_snapshot(trainer))
     replay_ms = None
     if collectives and spec["backend"] == "gloo":
-        buffers = [torch.zeros(n, dtype=getattr(torch, dtype.split(".")[1]), device=device)
-                   for n, dtype in collectives]
+        # Every collective of these runs spans the world: a 1 x 2 mesh's
+        # model group is the world, a data-parallel run's data group too.
+        world = torch.distributed.get_world_size()
+        buffers = [(kind, torch.zeros(n, dtype=getattr(torch, dtype.split(".")[1]),
+                                      device=device)) for kind, n, dtype in collectives]
         for _ in range(2):  # the second is timed
             mesh.barrier()
             torch.cuda.synchronize()
             start = time.perf_counter()
-            for buffer in buffers:
-                torch.distributed.all_reduce(buffer)
+            for kind, buffer in buffers:
+                if kind == "all_reduce":
+                    torch.distributed.all_reduce(buffer)
+                else:
+                    torch.distributed.all_gather(
+                        [torch.empty_like(buffer) for _ in range(world)], buffer)
             torch.cuda.synchronize()
             replay_ms = (time.perf_counter() - start) * 1e3
     for step_number, tensors in dumps.items():
@@ -2574,8 +2606,11 @@ def data_parallel_rank(spec_path: str) -> None:
                for r in recorder.steps],
         evaluation_forwards=[f["launches"] for f in recorder.forwards],
         digests=digests, peak_memory_gib=torch.cuda.max_memory_allocated(device) / 2 ** 30,
-        collectives=len(collectives), collective_elements=sum(n for n, _ in collectives),
-        collective_replay_ms=replay_ms)
+        collectives=len(collectives), collective_elements=sum(n for _, n, _ in collectives),
+        collective_kinds={kind: sum(1 for k, _, _ in collectives if k == kind)
+                          for kind in ("all_reduce", "all_gather")},
+        collective_replay_ms=replay_ms, sharded=list(layers.sharded_layers(trainer.model)),
+        parameter_bytes=sum(p.numel() * p.element_size() for p in trainer.model.parameters()))
     with open(spec["result"] % rank, "w") as f:
         json.dump(result, f)
     if torch.distributed.is_initialized():
@@ -2637,7 +2672,7 @@ class RankGroup:
             self.stop()
         if any(proc.returncode for proc in self.procs):
             tails = [Path(log.name).read_text()[-3000:] for log in self.logs]
-            raise RuntimeError(f"phase 15 run {self.name} failed (exit codes "
+            raise RuntimeError(f"run {self.name} failed (exit codes "
                                f"{[p.returncode for p in self.procs]}):\n" + "\n".join(tails))
         results = []
         for rank in range(max(self.world, 1)):
@@ -2655,11 +2690,13 @@ def wait_all(*groups: RankGroup) -> list:
             group.stop()
 
 
-def compare_with_one_rank(two: RankGroup, one: RankGroup, step: int, lr: float) -> dict:
+def compare_with_one_rank(two: RankGroup, one: RankGroup, step: int, lr: float,
+                          required: bool = True) -> dict:
     """Two ranks' state against one rank's after ``step``, at the dryrun's
     tolerances: parameters rtol 2e-3 and atol 4 lr, BatchNorm statistics,
-    centroids and the MI matrix rtol 2e-3 and atol lr; returns the largest
-    error as a share of its tolerance, per kind."""
+    centroids and the MI matrix rtol 2e-3 and atol lr (unless not
+    ``required``); returns the largest error as a share of its tolerance,
+    per kind."""
     got = torch.load(os.path.join(two.root, f"state_{step}_rank0.pt"))
     want = torch.load(os.path.join(one.root, f"state_{step}_rank0.pt"))
     require(got.keys() == want.keys(), "the dumped states differ in their tensors")
@@ -2669,8 +2706,9 @@ def compare_with_one_rank(two: RankGroup, one: RankGroup, step: int, lr: float) 
         atol = lr if kind == "statistics" else 4 * lr
         share = float(((got[key].double() - value.double()).abs()
                        / (atol + 2e-3 * value.double().abs())).max())
-        require(share <= 1.0, f"step {step}: {key} differs from one rank by {share:.3f} "
-                              f"of the dryrun's tolerance")
+        require(share <= 1.0 or not required,
+                f"step {step}: {key} differs from one rank by {share:.3f} of the dryrun's "
+                f"tolerance")
         worst[kind] = max(worst[kind], share)
     return worst
 
@@ -2692,13 +2730,15 @@ def data_parallel_phase(root: str) -> dict:
     the state bit for bit, the next step's loss finite, and that full-phase
     step on two ranks against the one-process trainer's at the dryrun's
     tolerances.  Prints ms per step per rank, the gloo all-reduce's share
-    of a step and peak memory per rank.  Returns the phase's launches."""
+    of a step and peak memory per rank.  Returns the phase's launches, and
+    the runs that phase 16 compares with: (a)'s two runs and (c)'s
+    one-process resume, by name, with (a)'s NCCL result."""
     start = time.perf_counter()
     # The ranks need the card's memory that earlier phases left cached.
     gc.collect()
     torch.cuda.empty_cache()
     lr = BAIR_CONFIG["training"]["learning_rate"]
-    plain = RankGroup(root, "plain", 0, "cuda", None, max_steps=DP_STEPS, dump_steps=[1])
+    plain = RankGroup(root, "plain", 0, "cuda", None, max_steps=DP_STEPS, dump_steps=[1, 2])
     nccl = RankGroup(root, "nccl", 1, "cuda", "nccl", max_steps=DP_STEPS, dump_steps=[1])
     (plain_result,), (nccl_result,) = wait_all(plain, nccl)
     gloo = RankGroup(root, "gloo", 2, "cuda:0", "gloo", max_steps=DP_STEPS, dump_steps=[1])
@@ -2792,6 +2832,113 @@ def data_parallel_phase(root: str) -> dict:
         for name, count in result["launches"].items():
             launches[name] += count
     emit(phase="data_parallel", seconds=time.perf_counter() - start, launches=launches,
+         nvidia_smi=card)
+    return launches, dict(plain=plain, nccl=nccl, nccl_result=nccl_result,
+                          resume_plain=groups["resume_plain"],
+                          resume_plain_result=resumed["resume_plain"][0])
+
+
+# Phase 16, tensor-parallel training: phase 15's loop config with
+# tpu.model_parallel 2 (tp_min_channels at its default, 256) on two gloo
+# ranks that share the card as a 1 x 2 mesh.  The ranks are held against
+# phase 15's one-process runs on each phase's first step from one state:
+# step 1 from the seeded state, and a full-phase step resumed from one
+# checkpoint (phase 15's NCCL rank's), as phase 15 holds its two ranks.
+# After step 2 the state is compared too, and its share of the dryrun's
+# tolerance printed, not required: past a step the two sides' parameters
+# differ by up to 2 lr where Adam's first update took the other sign.
+TP_MODEL_PARALLEL = 2
+
+
+def tensor_parallel_phase(root: str, phase15: dict) -> dict:
+    """Phase 16: (a) two gloo ranks sharing the card as a 1 x 2 mesh, 8
+    rows each: the sharded layers the same on both ranks, each rank's
+    state (sharded tensors gathered) bit for bit with the other's after
+    every step, against phase 15's one-process trainer at the dryrun's
+    tolerances after step 1 (the loss within 1e-3 relative), K1 and K2 18
+    times per rank per step, K3 never, rank 0 alone evaluating (on its
+    full-width copy); (b) phase 15's NCCL checkpoint resumed on the mesh:
+    the state bit for bit, the next full-phase step finite and within the
+    dryrun's tolerances of phase 15's one-process step from that
+    checkpoint.  Prints the sharded layers and the parameter bytes per
+    rank, ms per step per rank, one step's collectives replayed alone and
+    their share of the step, and peak memory per rank.  Returns the
+    phase's launches."""
+    start = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    lr = BAIR_CONFIG["training"]["learning_rate"]
+    tp = RankGroup(root, "tensor_parallel", 2, "cuda:0", "gloo", max_steps=DP_STEPS,
+                   dump_steps=[1, 2], model_parallel=TP_MODEL_PARALLEL)
+    (results,) = wait_all(tp)
+    want_step = {"convlstm_gates": 3 * (LOOP_FRAMES - 1),
+                 "convlstm_gates_bwd": 3 * (LOOP_FRAMES - 1), "fused_norm_act": 0}
+    require([r["process"] for r in results] == [[0, 2, 0, 2], [1, 2, 1, 2]],
+            [r["process"] for r in results])
+    sharded = results[0]["sharded"]
+    require(sharded and results[1]["sharded"] == sharded, "the ranks shard different layers")
+    for result in results:
+        require([s["step"] for s in result["steps"]] == list(range(1, DP_STEPS + 1)),
+                result["steps"])
+        for s in result["steps"]:
+            require(s["launches"] == want_step and s["rows"] == LOOP_BATCH
+                    and np.isfinite(s["loss"]) and s["pretraining"] == float(s["step"] == 1), s)
+    for s0, s1 in zip(*(r["steps"] for r in results)):
+        require(s0["digest"] == s1["digest"] and s0["loss"] == s1["loss"],
+                f"the model group's states differ after step {s0['step']}")
+    require(results[0]["digests"]["final"] == results[1]["digests"]["final"],
+            "the model group's final states differ")
+    require(len(results[0]["evaluation_forwards"]) == 3
+            and not results[1]["evaluation_forwards"],
+            "rank 0 alone must evaluate (3 passes of 1 batch)")
+    plain = phase15["plain"]
+    require_loss_close(results[0]["steps"][0], phase15["nccl_result"]["steps"][0])
+    pretraining_share = compare_with_one_rank(tp, plain, 1, lr)
+    step2_share = compare_with_one_rank(tp, plain, 2, lr, required=False)
+    step_ms = [[s["seconds"] * 1e3 for s in r["steps"] if s["step"] in DP_TIMED_STEPS]
+               for r in results]
+    median_ms = [statistics.median(ms) for ms in step_ms]
+    card = nvidia_smi()
+    emit(phase="tensor_parallel_mesh", backend="gloo", shared_card=True, mesh=[1, 2],
+         rows_per_rank=LOOP_BATCH, frames=LOOP_FRAMES, sharded=sharded,
+         parameter_bytes_per_rank=[r["parameter_bytes"] for r in results],
+         bit_exact_between_ranks=True, step1_loss=results[0]["steps"][0]["loss"],
+         step1_loss_one_process=phase15["nccl_result"]["steps"][0]["loss"],
+         step1_share_of_dryrun_tolerance=pretraining_share,
+         step2_share_of_dryrun_tolerance=step2_share, launches_per_rank_step=want_step,
+         ms_per_step_median=median_ms, ms_per_step_range=[[min(ms), max(ms)] for ms in step_ms],
+         collectives_per_step=results[0]["collectives"],
+         collective_kinds_per_step=results[0]["collective_kinds"],
+         collective_elements_per_step=results[0]["collective_elements"],
+         collective_replay_ms=[r["collective_replay_ms"] for r in results],
+         collective_share_of_step=[r["collective_replay_ms"] / ms
+                                   for r, ms in zip(results, median_ms)],
+         peak_memory_gib=[r["peak_memory_gib"] for r in results], nvidia_smi=card)
+
+    # (b) Phase 15's NCCL checkpoint on the mesh, one more full-phase step.
+    resume_step = DP_STEPS + 1
+    shutil.copytree(os.path.join(phase15["nccl"].root, "checkpoints"),
+                    os.path.join(root, "tensor_parallel_resume", "checkpoints"))
+    resume = RankGroup(root, "tensor_parallel_resume", 2, "cuda:0", "gloo",
+                       max_steps=resume_step, dump_steps=[resume_step],
+                       model_parallel=TP_MODEL_PARALLEL)
+    (resumed,) = wait_all(resume)
+    for result in resumed:
+        require(result["digests"]["resumed"] == phase15["nccl_result"]["digests"]["final"],
+                "the mesh's resumed state differs from phase 15's checkpoint")
+        require([s["step"] for s in result["steps"]] == [resume_step]
+                and np.isfinite(result["steps"][0]["loss"]), result["steps"])
+    require(resumed[0]["digests"]["final"] == resumed[1]["digests"]["final"],
+            "the model group's states differ after the resumed step")
+    require_loss_close(resumed[0]["steps"][0], phase15["resume_plain_result"]["steps"][0])
+    full_share = compare_with_one_rank(resume, phase15["resume_plain"], resume_step, lr)
+    launches = dict.fromkeys(want_step, 0)
+    for result in (*results, *resumed):
+        for name, count in result["launches"].items():
+            launches[name] += count
+    emit(phase="tensor_parallel_resume", bit_exact=True,
+         loss=resumed[0]["steps"][0]["loss"], full_step_share_of_dryrun_tolerance=full_share)
+    emit(phase="tensor_parallel", seconds=time.perf_counter() - start, launches=launches,
          nvidia_smi=card)
     return launches
 
@@ -2895,7 +3042,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is False; it needs an "
                  "NVIDIA GPU")
-    if sys.argv[1:2] == ["--data-parallel-rank"]:  # a process of phase 15
+    if sys.argv[1:2] == ["--data-parallel-rank"]:  # a process of phase 15 or 16
         data_parallel_rank(sys.argv[2])
         return
     card = nvidia_smi()
@@ -2940,14 +3087,15 @@ def main() -> None:
         distribution_metrics(root, eval_config, pair)
         soak_launches = convergence_soak_phase(root, gen)
         detector_phase(root)
-        parallel_launches = data_parallel_phase(root)
+        parallel_launches, phase15 = data_parallel_phase(root)
+        tensor_parallel_launches = tensor_parallel_phase(root, phase15)
 
     kernels = [dict(name=name, route="cuda",
                     source=f"playablevideogeneration_tpu_torch/ops/cuda/csrc/{source}.cu",
                     replaces=replaces,
                     launches=(play_launches[name] + train_launches[name] + loop_launches[name]
                               + after_launches[name] + soak_launches[name]
-                              + parallel_launches[name]),
+                              + parallel_launches[name] + tensor_parallel_launches[name]),
                     max_abs_err=errors[name], ms=sums[name]["ms"],
                     cold_ms=sums[name]["cold_ms"],
                     plain_ms=sums[name]["plain_ms"], bound_ms=sums[name]["bound_ms"],

@@ -9,8 +9,11 @@ The port so far covers the interactive play route of the model
 (``models.caddy.Caddy.play_step`` and ``inference.play_session``) and
 training: the training step (``training.trainer.Trainer.train_step``) and
 the train CLI (``cli.train``) with its configuration, data pipeline, epoch
-loop, checkpoints and in-training evaluation, on one GPU or data-parallel
-over several (``parallel.mesh``, under torchrun); the data acquisition
+loop, checkpoints and in-training evaluation, on one GPU or over several
+under torchrun, data-parallel and tensor-parallel on the JAX package's
+``(data, model)`` mesh (``parallel.mesh``; ``tpu.model_parallel`` shards
+the wide kernels' output channels, ``models.layers.ColumnParallel``); the
+data acquisition
 CLIs (``data.acquisition``); and what comes after
 training: the play and interpolate CLIs, the import of the reference's
 ``.pth.tar`` checkpoints, and the offline evaluation (``cli.build_evaluation_dataset``,

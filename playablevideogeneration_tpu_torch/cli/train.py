@@ -6,20 +6,28 @@ without a GPU the default raises instead of moving to the CPU:
 
     python -m playablevideogeneration_tpu_torch.cli.train --config configs/01_bair.yaml
 
-On G GPUs of one machine, data-parallel with the JAX trainer's
-global-batch semantics (the config's ``batch_size`` split over the GPUs;
-``tpu.data_parallel_devices``, when set, must be G):
+On G GPUs of one machine, G/M-way data-parallel and M-way
+tensor-parallel (``tpu.model_parallel: M``, default 1; M must divide G)
+with the JAX trainer's semantics: the config's ``batch_size`` split over
+the G/M data indices, the wide kernels' output channels over the M ranks
+of each model group:
 
     torchrun --nproc_per_node=G -m playablevideogeneration_tpu_torch.cli.train \
         --config configs/01_bair.yaml
+
+``tpu.data_parallel_devices``, when set, counts data indices over every
+node, as the JAX package counts devices over every process: times
+``tpu.model_parallel`` it must be the world.
 
 A run resumes from its ``latest`` checkpoint when there is one, saves
 ``latest`` after every epoch and ``checkpoint_<step>`` every ``save_freq``
 steps, and evaluates on the validation split every ``eval_freq`` steps:
 with the Gumbel sampler, and when the data carries ground-truth actions
 also with the one-hot sampler and the ground-truth sampler through the
-Hungarian mapping.  In a data-parallel run rank 0 evaluates while the
-other ranks wait, and only rank 0 prints, logs and writes checkpoints.
+Hungarian mapping.  In a run of several ranks rank 0 evaluates (under
+tensor parallelism on a full-width copy of the model that its model group
+gathers) while the other ranks wait, and only rank 0 prints, logs and
+writes checkpoints.
 """
 from __future__ import annotations
 
@@ -126,9 +134,11 @@ def train(config_dict: dict, use_wandb: bool = False, max_steps: Optional[int] =
 
         if eval_freq and trainer.global_step - last_eval >= eval_freq:
             last_eval = trainer.global_step
-            if trainer.process.rank == 0:
-                evaluate(evaluators["validation"], trainer.global_step,
-                         config_dict["data"]["ground_truth_available"])
+            if trainer.mesh.data_index == 0:
+                with trainer.full_model_in(evaluators["validation"]):
+                    if trainer.process.rank == 0:
+                        evaluate(evaluators["validation"], trainer.global_step,
+                                 config_dict["data"]["ground_truth_available"])
             if trainer.distributed:
                 mesh.barrier()
     logger.print("- Training complete")

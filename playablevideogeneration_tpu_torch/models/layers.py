@@ -24,6 +24,7 @@ compute the plain op tap for tap, so the port has only the plain op.
 from __future__ import annotations
 
 import contextlib
+import copy
 from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
@@ -108,6 +109,117 @@ class Linear(_CastParameters, nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x.to(self.compute_dtype), self._cast("weight"), self._cast("bias"))
+
+
+class ColumnParallel(_CastParameters, nn.Module):
+    """A ``Conv2d`` or ``Linear`` whose output channels are split over the
+    model group: the counterpart of a kernel that the JAX package's
+    ``param_shardings`` shards ``P(..., 'model')``.
+
+    It holds the f32 master slice ``weight[m * O / M:(m + 1) * O / M]`` of
+    model index ``m`` (JAX's contiguous block) and the full, replicated
+    bias, which ``param_shardings`` leaves unsharded.  Its forward is
+    ``copy_to_model`` -> the layer on the slice -> ``gather_from_model`` ->
+    ``+ bias``, so what follows sees the full output on every rank.  Build
+    it with ``shard_model``.
+    """
+
+    def __init__(self, layer: nn.Module, info: mesh.MeshInfo):
+        super().__init__()
+        rows = layer.weight.shape[0] // info.model_size
+        start = info.model_index * rows
+        self.weight = nn.Parameter(layer.weight.detach()[start:start + rows].clone())
+        self.bias = layer.bias
+        self.compute_dtype = layer.compute_dtype
+        self.padding = layer.padding if isinstance(layer, nn.Conv2d) else None
+        self.info = info
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = mesh.copy_to_model(x.to(self.compute_dtype), self.info)
+        if self.padding is None:
+            y = mesh.gather_from_model(F.linear(x, self._cast("weight")), -1, self.info)
+            bias = self._cast("bias")
+        else:
+            y = mesh.gather_from_model(
+                F.conv2d(x, self._cast("weight"), padding=self.padding), 1, self.info)
+            bias = None if self.bias is None else self._cast("bias")[:, None, None]
+        return y if bias is None else y + bias
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """A tensor of this rank's slice's shape (the weight, its gradient,
+        an Adam moment) gathered over the model group into the full
+        layer's shape."""
+        return mesh.gather_rows(x, self.info)
+
+    def slice(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a tensor of the full layer's shape."""
+        rows = self.weight.shape[0]
+        if x.shape[1:] != self.weight.shape[1:] or x.shape[0] != rows * self.info.model_size:
+            raise ValueError(f"a tensor of shape {tuple(x.shape)} is not the full weight of "
+                             f"slices {tuple(self.weight.shape)} x {self.info.model_size}")
+        return x[self.info.model_index * rows:(self.info.model_index + 1) * rows]
+
+    def unsharded(self) -> nn.Module:
+        """The plain layer with the gathered weight and a copy of the bias
+        (a collective over the model group)."""
+        weight = self.gather(self.weight)
+        with torch.device("meta"):
+            if self.padding is None:
+                layer = Linear(weight.shape[1], weight.shape[0], self.compute_dtype)
+            else:
+                layer = Conv2d(weight.shape[1], weight.shape[0], weight.shape[2],
+                               self.bias is not None, self.compute_dtype)
+        layer.weight = nn.Parameter(weight)
+        if self.bias is not None:
+            layer.bias = nn.Parameter(self.bias.detach().clone())
+        return layer
+
+
+def tensor_parallel_layers(model: nn.Module, model_size: int, min_channels: int) -> list:
+    """The names of the layers whose kernels the JAX package's
+    ``param_shardings`` shards over a model axis of ``model_size``: every
+    ``Conv2d`` or ``Linear`` (a Flax ``kernel`` with ``ndim >= 2``) with at
+    least ``min_channels`` output channels, a multiple of ``model_size``;
+    none when ``model_size`` is 1."""
+    if model_size == 1:
+        return []
+    return [name for name, module in model.named_modules()
+            if isinstance(module, (Conv2d, Linear))
+            and module.weight.shape[0] >= min_channels
+            and module.weight.shape[0] % model_size == 0]
+
+
+def shard_model(model: nn.Module, info: mesh.MeshInfo, min_channels: int) -> list:
+    """Replaces each of ``tensor_parallel_layers`` in ``model`` by its
+    ``ColumnParallel`` slice for this rank, in place, and returns their
+    names.  Every rank of the model group must hold the same full weights
+    first.  With a model axis of one rank it changes nothing."""
+    names = tensor_parallel_layers(model, info.model_size, min_channels)
+    for name in names:
+        parent, _, child = name.rpartition(".")
+        owner = model.get_submodule(parent)
+        setattr(owner, child, ColumnParallel(getattr(owner, child), info))
+    return names
+
+
+def sharded_layers(model: nn.Module) -> dict:
+    """``{"<layer>.weight": layer}`` for every ``ColumnParallel`` layer in
+    ``model``, in module order: the state-dict names of the sharded
+    tensors."""
+    return {f"{name}.weight": module for name, module in model.named_modules()
+            if isinstance(module, ColumnParallel)}
+
+
+def unsharded_copy(model: nn.Module) -> nn.Module:
+    """A copy of ``model`` with every ``ColumnParallel`` layer gathered
+    into the plain full-width layer: every rank of the model group must
+    call it (one gather per sharded layer).  ``model`` itself when nothing
+    is sharded."""
+    layers = list(sharded_layers(model).values())
+    if not layers:
+        return model
+    # deepcopy takes what the memo holds for an object in place of a copy.
+    return copy.deepcopy(model, {id(layer): layer.unsharded() for layer in layers})
 
 
 class BatchNorm(nn.Module):

@@ -1,30 +1,48 @@
-"""Data parallelism over several GPUs with ``torch.distributed``.
+"""Data and tensor parallelism over several GPUs with ``torch.distributed``.
 
-Counterpart of the data-parallel half of
-``playablevideogeneration_tpu/parallel/mesh.py`` and of
-``utils/jax_setup.py``'s ``setup_multihost`` and ``process_info``.  The JAX
-train step is written over the *global* batch and GSPMD shards it, so
-every reduction over the batch spans all devices and the noise is drawn
-for the global array.  Here each rank runs the step on its rows of the
-global batch, and the code that reduces over the batch asks this module:
+Counterpart of ``playablevideogeneration_tpu/parallel/mesh.py`` and of
+``utils/jax_setup.py``'s ``setup_multihost`` and ``process_info``.  A rank
+is a JAX device, a node (one torchrun launch) a JAX process, and the
+ranks form the JAX package's ``(data, model)`` grid: rank ``r`` sits at
+data index ``r // M`` and model index ``r % M`` (``make_mesh``), the
+reshape of the device list that ``make_mesh`` there does.  The ``M``
+ranks of one data index form a *model group* and hold the same rows of
+the batch; the ranks of one model index form a *data group*.
 
-- ``all_reduce_sum``: a differentiable sum over the ranks (train-mode
-  BatchNorm's sums of x and x^2, the mutual-information joint matrix);
+The JAX train step is written over the *global* batch and GSPMD shards
+it, so every reduction over the batch spans the data axis and the noise is
+drawn for the global array.  Here each rank runs the step on its data
+index's rows of the global batch, and the code that reduces over the
+batch asks this module, which reduces over the data group only (a model
+group's ranks hold the same rows, and summing over them would count each
+row ``M`` times):
+
+- ``all_reduce_sum``: a differentiable sum (train-mode BatchNorm's sums of
+  x and x^2, the mutual-information joint matrix);
 - ``sum_over_ranks`` and ``mean_over_ranks``: the same without a gradient
   (the centroid EMA's sums, the logged diagnostics);
 - ``global_rows``: noise drawn for the global batch from the generator
-  every rank seeds alike, this rank's rows kept;
-- ``world_size``: the count of ranks whose rows make the batch.
+  every rank seeds alike, this data index's rows kept;
+- ``world_size``: the count of data indices whose rows make the batch.
 
-They act only inside ``global_batch(info)``, which the trainer enters for
-its step when a process group exists.  Outside it they reduce nothing and
-draw for the local batch, which is the one-process trainer's arithmetic;
-and inside it at one rank every collective is an identity, so a run of
-one rank computes what the one-process trainer computes, bit for bit.
+They act only inside ``global_batch(mesh)``, which the trainer enters for
+its step when a process group exists.  Outside it, and inside it with a
+data group of one rank, they reduce nothing and draw for the local batch,
+which is the one-process trainer's arithmetic with the same graph nodes:
+a run of one rank computes what the one-process trainer computes, bit for
+bit.
 
-Only ``all_reduce``, ``broadcast`` and ``barrier`` are used: gloo runs
-all three on CUDA tensors, so two ranks can share one GPU over gloo when
-the caller names that backend.
+Tensor parallelism (``tpu.model_parallel`` above 1) splits the output
+channels of wide kernels over the model group (``models.layers
+.ColumnParallel``), with Megatron's column-parallel pair of autograd
+functions: ``copy_to_model`` (the identity forward, a sum over the model
+group backward) and ``gather_from_model`` (the slices gathered forward,
+this rank's slice kept backward).  ``gather_rows`` gathers a sharded
+tensor without a gradient, for checkpoints and evaluation.
+
+Only ``all_reduce``, ``all_gather``, ``broadcast`` and ``barrier`` are
+used: gloo runs them on CUDA tensors, so ranks can share one GPU over gloo
+when the caller names that backend.
 """
 from __future__ import annotations
 
@@ -72,6 +90,59 @@ def process_info() -> ProcessInfo:
                        int(os.environ.get("LOCAL_WORLD_SIZE", world)))
     if world % info.local_world or info.local_rank >= info.local_world:
         raise RuntimeError(f"inconsistent process layout: {info}")
+    return info
+
+
+@dataclass(frozen=True)
+class MeshInfo:
+    """This rank's place in the ``(data, model)`` grid of ranks, and the
+    groups it reduces and gathers over.  A group of ``None`` is the default
+    group of every rank: the data group when ``model_size`` is 1, the model
+    group when ``data_size`` is 1 (a group that is the whole world is not
+    made twice)."""
+
+    process: ProcessInfo = ProcessInfo()
+    model_size: int = 1
+    data_group: Optional[dist.ProcessGroup] = None
+    model_group: Optional[dist.ProcessGroup] = None
+
+    @property
+    def data_index(self) -> int:
+        return self.process.rank // self.model_size
+
+    @property
+    def data_size(self) -> int:
+        return self.process.world // self.model_size
+
+    @property
+    def model_index(self) -> int:
+        return self.process.rank % self.model_size
+
+
+def make_mesh(process: ProcessInfo, model_parallel: int = 1) -> MeshInfo:
+    """The ``(world / M) x M`` grid of ``process``'s world, with ``M`` the
+    model-axis size.  Raises when ``M`` does not divide the world (the JAX
+    ``make_mesh``'s "does not cover") or the ranks of a node (a JAX process
+    owns whole rows of the grid).
+
+    When both axes are longer than one rank, every rank creates every group
+    in the same order, as ``torch.distributed.new_group`` requires: the
+    model groups (``M`` consecutive ranks) by data index, then the data
+    groups (ranks ``m, m + M, ...``) by model index."""
+    m, world = model_parallel, process.world
+    if m < 1 or world % m:
+        raise ValueError(f"a mesh of model size {m} (tpu.model_parallel) does not cover "
+                         f"{world} rank(s)")
+    if process.local_world % m:
+        raise ValueError(f"tpu.model_parallel {m} does not divide the {process.local_world} "
+                         f"rank(s) of a node: a node holds whole rows of the mesh")
+    info = MeshInfo(process, m)
+    if m > 1 and world > m:
+        model_groups = [dist.new_group(list(range(d * m, (d + 1) * m)))
+                        for d in range(world // m)]
+        data_groups = [dist.new_group(list(range(i, world, m))) for i in range(m)]
+        info = MeshInfo(process, m, data_groups[info.model_index],
+                        model_groups[info.data_index])
     return info
 
 
@@ -123,15 +194,15 @@ def barrier() -> None:
         dist.barrier()
 
 
-# The ranks whose rows make the batch of the step running now, set by
-# ``global_batch``; None outside a data-parallel step.
-_GLOBAL_BATCH: Optional[ProcessInfo] = None
+# The mesh whose data indices' rows make the batch of the step running
+# now, set by ``global_batch``; None outside a data-parallel step.
+_GLOBAL_BATCH: Optional[MeshInfo] = None
 
 
 @contextlib.contextmanager
-def global_batch(info: ProcessInfo) -> Iterator[None]:
+def global_batch(info: MeshInfo) -> Iterator[None]:
     """Within the block (a training step's forward and backward), the batch
-    is the global one that ``info``'s ranks hold between them."""
+    is the global one that ``info``'s data indices hold between them."""
     global _GLOBAL_BATCH
     previous, _GLOBAL_BATCH = _GLOBAL_BATCH, info
     try:
@@ -140,73 +211,147 @@ def global_batch(info: ProcessInfo) -> Iterator[None]:
         _GLOBAL_BATCH = previous
 
 
+def _data_group() -> Optional[MeshInfo]:
+    """The mesh of the step running now when its data axis holds more than
+    one rank, else None (every batch reduction is then local)."""
+    if _GLOBAL_BATCH is None or _GLOBAL_BATCH.data_size == 1:
+        return None
+    return _GLOBAL_BATCH
+
+
 def world_size() -> int:
-    """The count of ranks whose rows make the batch: 1 outside
+    """The count of data indices whose rows make the batch: 1 outside
     ``global_batch``."""
-    return 1 if _GLOBAL_BATCH is None else _GLOBAL_BATCH.world
+    return 1 if _GLOBAL_BATCH is None else _GLOBAL_BATCH.data_size
 
 
 class AllReduceSum(torch.autograd.Function):
-    """Sum over the ranks, forward and backward: each rank's loss depends
-    on every rank's input, so each input's gradient is the sum of every
+    """Sum over a group, forward and backward: each rank's loss depends on
+    every rank's input, so each input's gradient is the sum of every
     rank's cotangent."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+        ctx.group = group
         y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
-    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+    def backward(ctx, grad: torch.Tensor):
         grad = grad.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(grad)
-        return grad
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
 
 
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the ranks, differentiably (``AllReduceSum``).
-    Outside ``global_batch`` a copy: one node in the autograd graph where
-    ``AllReduceSum`` is one, so that a step of one rank in a group and a
-    step with no group run their backward in the same order, and the
-    one-process step pays no Python call for it."""
-    if _GLOBAL_BATCH is None:
+    """``x`` summed over the data group, differentiably (``AllReduceSum``).
+    Outside ``global_batch``, or with a data group of one rank, a copy: one
+    node in the autograd graph where ``AllReduceSum`` is one, so that both
+    run their backward in the same order, and the one-process step pays no
+    Python call for it."""
+    info = _data_group()
+    if info is None:
         return x.clone()
-    return AllReduceSum.apply(x)
+    return AllReduceSum.apply(x, info.data_group)
 
 
 @torch.no_grad()
 def sum_over_ranks(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the ranks, without a gradient; ``x`` itself
-    outside ``global_batch``."""
-    if _GLOBAL_BATCH is None:
+    """``x`` summed over the data group, without a gradient; ``x`` itself
+    outside ``global_batch`` or with a data group of one rank."""
+    info = _data_group()
+    if info is None:
         return x
     y = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(y)
+    dist.all_reduce(y, group=info.data_group)
     return y
 
 
 @torch.no_grad()
 def mean_over_ranks(x: torch.Tensor) -> torch.Tensor:
-    """``x`` averaged over the ranks, without a gradient: a per-rank mean
-    of equal-sized batches becomes the global batch's mean."""
-    if _GLOBAL_BATCH is None:
+    """``x`` averaged over the data group, without a gradient: a per-rank
+    mean of equal-sized batches becomes the global batch's mean."""
+    info = _data_group()
+    if info is None:
         return x
-    return sum_over_ranks(x) / _GLOBAL_BATCH.world
+    return sum_over_ranks(x) / info.data_size
 
 
 def global_rows(draw: Callable[[Sequence[int]], torch.Tensor],
                 shape: Sequence[int]) -> torch.Tensor:
-    """``draw(shape)`` for this rank's rows of the global batch: ``draw``
-    of the global shape (dim 0 times the world), rows ``rank * shape[0]``
-    on.  Every rank's generator is seeded alike and draws the whole
-    array, so the ranks' rows in rank order are the one-process draw and
-    the generators stay in step."""
-    if _GLOBAL_BATCH is None:
+    """``draw(shape)`` for this data index's rows of the global batch:
+    ``draw`` of the global shape (dim 0 times the data size), rows
+    ``data_index * shape[0]`` on.  Every rank's generator is seeded alike
+    and draws the whole array, so the rows in data-index order are the
+    one-process draw, a model group's ranks draw the same rows, and the
+    generators stay in step."""
+    info = _data_group()
+    if info is None:
         return draw(tuple(shape))
-    rows, rank = shape[0], _GLOBAL_BATCH.rank
-    full = draw((rows * _GLOBAL_BATCH.world,) + tuple(shape[1:]))
-    return full[rank * rows:(rank + 1) * rows]
+    rows, index = shape[0], info.data_index
+    full = draw((rows * info.data_size,) + tuple(shape[1:]))
+    return full[index * rows:(index + 1) * rows]
+
+
+class CopyToModel(torch.autograd.Function):
+    """The identity forward; the cotangent summed over the model group
+    backward, since each rank's output slice gives a partial gradient of
+    the input that every rank of the group holds."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class GatherFromModel(torch.autograd.Function):
+    """The model group's slices concatenated along ``dim`` in model-index
+    order forward; this rank's slice of the cotangent backward, since what
+    follows is computed alike on every rank of the group, so every rank
+    holds the same full cotangent."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, dim: int, info: MeshInfo) -> torch.Tensor:
+        ctx.dim, ctx.index, ctx.rows = dim, info.model_index, x.shape[dim]
+        return _all_gather(x, dim, info)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad.narrow(ctx.dim, ctx.index * ctx.rows, ctx.rows), None, None
+
+
+def _all_gather(x: torch.Tensor, dim: int, info: MeshInfo) -> torch.Tensor:
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(info.model_size)]
+    dist.all_gather(parts, x, group=info.model_group)
+    return torch.cat(parts, dim=dim)
+
+
+def copy_to_model(x: torch.Tensor, info: MeshInfo) -> torch.Tensor:
+    """``x`` entering a column-parallel layer of the model group
+    (``CopyToModel``)."""
+    return CopyToModel.apply(x, info.model_group)
+
+
+def gather_from_model(x: torch.Tensor, dim: int, info: MeshInfo) -> torch.Tensor:
+    """A column-parallel layer's output slices, gathered along ``dim``
+    (``GatherFromModel``)."""
+    return GatherFromModel.apply(x, dim, info)
+
+
+@torch.no_grad()
+def gather_rows(x: torch.Tensor, info: MeshInfo) -> torch.Tensor:
+    """The model group's slices of a sharded tensor (its rows, dim 0)
+    concatenated in model-index order, without a gradient: the full tensor
+    on every rank of the group."""
+    return _all_gather(x.detach(), 0, info)
 
 
 def _flat_groups(tensors: Iterable[torch.Tensor]):
@@ -229,13 +374,18 @@ def broadcast_from_rank0(module: torch.nn.Module) -> None:
 
 
 @torch.no_grad()
-def all_reduce_gradients(parameters: Iterable[torch.nn.Parameter], world: int) -> None:
-    """Replaces every parameter's gradient by its mean over the ranks: one
-    flat buffer per dtype, one ``all_reduce``, then a division by
-    ``world``.  Every parameter must have a gradient."""
+def all_reduce_gradients(parameters: Iterable[torch.nn.Parameter], info: MeshInfo) -> None:
+    """Replaces every parameter's gradient by its mean over the data group:
+    one flat buffer per dtype, one ``all_reduce``, then a division by the
+    data size; nothing with a data group of one rank.  A replicated
+    parameter's gradient already agrees across its model group, and a
+    sharded slice's is averaged with the ranks that hold the same slice.
+    Every parameter must have a gradient."""
+    if info.data_size == 1:
+        return
     for grads in _flat_groups([p.grad for p in parameters]):
         flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat)
-        flat /= world
+        dist.all_reduce(flat, group=info.data_group)
+        flat /= info.data_size
         for g, value in zip(grads, flat.split([g.numel() for g in grads])):
             g.copy_(value.view_as(g))

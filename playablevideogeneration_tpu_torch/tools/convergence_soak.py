@@ -192,10 +192,11 @@ def run_eval(evaluators, trainer, eval_f, save_images: bool = True) -> dict:
     )
 
     ev = evaluators["validation"]
-    ev.set_action_sampler(None)
-    metrics = ev.evaluate(trainer.global_step, save_images=save_images)
-    ev.set_action_sampler(one_hot_action_sampler, label="one_hot")
-    onehot = ev.evaluate(trainer.global_step, save_images=False)
+    with trainer.full_model_in(ev):
+        ev.set_action_sampler(None)
+        metrics = ev.evaluate(trainer.global_step, save_images=save_images)
+        ev.set_action_sampler(one_hot_action_sampler, label="one_hot")
+        onehot = ev.evaluate(trainer.global_step, save_images=False)
     record = {
         "step": trainer.global_step,
         "observations_loss": metrics.get("validation/observations_loss/avg"),
@@ -332,7 +333,8 @@ def main(argv=None):
         return
 
     # Evidence.
-    actions, movements = collect_action_movements(evaluators["validation"], datasets)
+    with trainer.full_model_in(evaluators["validation"]):
+        actions, movements = collect_action_movements(evaluators["validation"], datasets)
     artifact_dir = args.artifact_dir or os.path.join(args.root, "artifacts")
     plots_dir = os.path.join(artifact_dir, "plots")
     os.makedirs(plots_dir, exist_ok=True)

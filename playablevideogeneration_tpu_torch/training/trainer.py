@@ -13,25 +13,31 @@ write and read the training state, and ``load_reference_weights`` imports
 a reference ``.pth.tar``'s weights.
 
 With a process group (``parallel.mesh.init_distributed``) the trainer is
-one rank of a data-parallel run with the JAX trainer's global-batch
-semantics: its loader yields this rank's rows of its node's batch, the
-step runs inside ``parallel.mesh.global_batch`` (global BatchNorm
-statistics, mutual-information joint, centroid EMA, noise and
-diagnostics), the gradients are averaged over the ranks before Adam, and
-only rank 0 writes checkpoints, plots and profiler traces.
+one rank of the JAX trainer's ``(data, model)`` mesh (``tpu.model_parallel``
+ranks on the model axis, ``parallel.mesh.make_mesh``) with its
+global-batch semantics: its loader yields its data index's rows of its
+node's batch, the step runs inside ``parallel.mesh.global_batch`` (global
+BatchNorm statistics, mutual-information joint, centroid EMA, noise and
+diagnostics, reduced over the data group), the gradients are averaged over
+the data group before Adam, and only rank 0 writes checkpoints, plots and
+profiler traces.  Under tensor parallelism the wide kernels hold their
+slice of the output channels (``models.layers.shard_model``, as the JAX
+package's ``param_shardings``), and checkpoints and the evaluation see the
+full model.
 """
 from __future__ import annotations
 
 import contextlib
 import os
 import time
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
 from playablevideogeneration_tpu_torch.data.loader import DataLoader
+from playablevideogeneration_tpu_torch.models import layers
 from playablevideogeneration_tpu_torch.models.caddy import Caddy
 from playablevideogeneration_tpu_torch.models.centroids import average_centroid_distance
 from playablevideogeneration_tpu_torch.models.vgg import Vgg19, make_vgg
@@ -193,24 +199,30 @@ class Trainer:
     :param logger: a ``utils.logging.Logger`` (default: stdout only, on
         rank 0)
 
-    ``tpu.model_parallel`` above 1 raises, and so does a
-    ``tpu.data_parallel_devices`` other than the ranks on this node.
+    The ranks form a mesh of ``world / M`` x ``M``, ``M`` being
+    ``tpu.model_parallel``: a world or a node's ranks that ``M`` does not
+    divide raise, and so does a ``tpu.data_parallel_devices`` (counted over
+    every node, as the JAX package counts devices over every process) whose
+    product with ``M`` is not the world.
     """
 
     def __init__(self, config: dict, model: Caddy, smooth_mi: bool = False,
                  vgg: Optional[Vgg19] = None, seed: int = 0, dataset=None,
                  logger: Optional[Logger] = None):
         tpu = config.get("tpu", {})
-        if tpu.get("model_parallel", 1) > 1:
-            raise NotImplementedError(
-                "tpu.model_parallel > 1 (tensor parallelism) is not ported: ROADMAP.md, "
-                "Queue 1, tensor parallelism")
         self.process = mesh.process_info()
         self.distributed = dist.is_initialized()
+        model_parallel = tpu.get("model_parallel", 1)
         devices = tpu.get("data_parallel_devices")
-        if devices is not None and devices != self.process.local_world:
-            raise ValueError(f"tpu.data_parallel_devices is {devices}, but "
-                             f"{self.process.local_world} rank(s) run on this node")
+        if devices is not None and devices * model_parallel != self.process.world:
+            # The JAX trainer caps its mesh to the first N * M devices; a
+            # rank is a device here, and a rank left out of the mesh would
+            # have nothing to do.
+            raise ValueError(f"tpu.data_parallel_devices is {devices} with "
+                             f"tpu.model_parallel {model_parallel}, but {self.process.world} "
+                             f"rank(s) run: the mesh must take every rank")
+        self.mesh = mesh.make_mesh(self.process, model_parallel)
+        self.tp_min_channels = tpu.get("tp_min_channels", 256)
         self.config = config
         self.model = model
         self.smooth_mi = smooth_mi
@@ -242,14 +254,15 @@ class Trainer:
         self.dataloader = None
         if dataset is not None:
             # A node loads the JAX process's shard of the epoch, and each of
-            # its ranks takes its contiguous rows of every batch.
-            batching, process = t["batching"], self.process
+            # its data indices takes its contiguous rows of every batch: the
+            # ranks of a model group load the same rows.
+            batching, process, m = t["batching"], self.process, model_parallel
             self.dataloader = DataLoader(
                 dataset, batch_size=batching["batch_size"], shuffle=True, drop_last=True,
                 num_workers=batching["num_workers"], prefetch=tpu.get("prefetch_batches", 2),
                 seed=seed, worker_mode=batching.get("worker_mode", "thread"),
                 shard_index=process.node, shard_count=process.nodes,
-                local_rank=process.local_rank, local_world=process.local_world)
+                local_rank=process.local_rank // m, local_world=process.local_world // m)
         self.average_meter = AverageMeter()
         # The action-space plots' inputs of the last step, on the device.
         self.plot_arrays: Dict[str, torch.Tensor] = {}
@@ -264,10 +277,13 @@ class Trainer:
     def init_state(self) -> TrainState:
         """Puts the model in training mode and builds the optimizer, the
         learning-rate schedule and the uniform MI matrix; with a process
-        group, rank 0's parameters and buffers first replace every rank's."""
+        group, rank 0's parameters and buffers first replace every rank's,
+        and then each sharded layer keeps this rank's slice, so that Adam's
+        moments are slices too."""
         self.model.train()
         if self.distributed:
             mesh.broadcast_from_rank0(self.model)
+        layers.shard_model(self.model, self.mesh, self.tp_min_channels)
         optimizer, scheduler = schedules.make_optimizer(self.config, self.model.parameters())
         self.state = TrainState(
             model=self.model, optimizer=optimizer, scheduler=scheduler,
@@ -282,18 +298,21 @@ class Trainer:
 
     def save_checkpoint(self, name: Optional[str] = None) -> None:
         """Saves the training state as ``name`` (default ``latest``) under
-        the run's save directory: rank 0 writes it, every rank's state being
-        the same, and the others wait for it."""
-        if self.process.rank == 0:
-            ckpt_lib.save_checkpoint(self._checkpoint_path(name), self.state.state_dict())
+        the run's save directory, in full tensors: rank 0's model group
+        gathers the sharded ones, rank 0 writes them, every data index's
+        state being the same, and the others wait for it."""
+        if self.mesh.data_index == 0:
+            state = self.state.state_dict()
+            if self.process.rank == 0:
+                ckpt_lib.save_checkpoint(self._checkpoint_path(name), state)
         if self.distributed:
             mesh.barrier()
 
     def load_checkpoint(self, name: Optional[str] = None) -> None:
         """Restores the training state saved as ``name`` (default
         ``latest``) into the state ``init_state`` built, and the step.
-        Every rank reads the file to the CPU and copies it to its device,
-        whatever count of ranks wrote it."""
+        Every rank reads the file to the CPU and copies it (of a sharded
+        tensor, its slice) to its device, whatever mesh wrote it."""
         if self.state is None:
             raise RuntimeError("call init_state first")
         self.state.load_state_dict(ckpt_lib.restore_checkpoint(self._checkpoint_path(name)))
@@ -305,11 +324,30 @@ class Trainer:
         """Imports the model's weights from a reference ``.pth.tar``
         checkpoint (the released CADDY checkpoints), converted by
         ``utils.reference_checkpoint``.  The optimizer's state and the step
-        stay as ``init_state`` built them: an import, not a resume."""
+        stay as ``init_state`` built them: an import, not a resume.  A
+        sharded model refuses the full-size weights (``load_jax_variables``
+        checks every shape)."""
         if self.state is None:
             raise RuntimeError("call init_state first")
         load_jax_variables(self.model, load_reference_checkpoint(path))
         self.logger.print(f"- Imported reference checkpoint weights from {path}")
+
+    @contextlib.contextmanager
+    def full_model_in(self, *evaluators) -> Iterator[Caddy]:
+        """Within the block the ``evaluators`` see the whole model: under
+        tensor parallelism a full-width copy (``layers.unsharded_copy``)
+        that every rank of the model group must join in gathering, which
+        holds one more set of the model's parameters while it lasts;
+        otherwise the model itself."""
+        model = layers.unsharded_copy(self.model)
+        saved = [evaluator.model for evaluator in evaluators]
+        for evaluator in evaluators:
+            evaluator.model = model
+        try:
+            yield model
+        finally:
+            for evaluator, previous in zip(evaluators, saved):
+                evaluator.model = previous
 
     # Host-side schedules of the global step.
 
@@ -357,7 +395,7 @@ class Trainer:
         lr = state.scheduler.get_last_lr()[0]
 
         state.optimizer.zero_grad(set_to_none=True)
-        global_batch = (mesh.global_batch(self.process) if self.distributed
+        global_batch = (mesh.global_batch(self.mesh) if self.distributed
                         else contextlib.nullcontext())
         with global_batch:
             total, aux = compute_loss_terms(
@@ -368,24 +406,40 @@ class Trainer:
 
             # A parameter the phase does not use (state_to_hidden in the
             # full phase) takes a zero gradient, so that Adam decays it as
-            # optax does.
+            # optax does.  The gradients of sharded slices are kept apart,
+            # by module, for the norms.
+            sharded = {id(layer.weight): layer
+                       for layer in layers.sharded_layers(self.model).values()}
             modules: Dict[str, list] = {}
+            slices: Dict[str, list] = {}
             for name, p in self.model.named_parameters():
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-                modules.setdefault(name.split(".")[0], []).append(p.grad)
+                grads = slices if id(p) in sharded else modules
+                grads.setdefault(name.split(".")[0], []).append(p)
             if self.distributed:
-                mesh.all_reduce_gradients(self.model.parameters(), self.process.world)
+                mesh.all_reduce_gradients(self.model.parameters(), self.mesh)
             # The rank's losses and diagnostics are means over its rows (or
-            # global already): their mean over the ranks is the global one.
+            # global already): their mean over the data group is the global one.
             local = dict(aux["info"], loss=total.detach())
             averaged = mesh.mean_over_ranks(torch.stack([v.float() for v in local.values()]))
-        squares = {m: torch.stack(torch._foreach_norm(g)).square().sum()
-                   for m, g in modules.items()}
+        squares = {m: torch.stack(torch._foreach_norm([p.grad for p in ps])).square().sum()
+                   for m, ps in modules.items()}
+        if slices:
+            # A sharded gradient's squared norm is the sum of its slices'.
+            names = sorted(slices)
+            partial = mesh.gather_rows(torch.stack([
+                torch.stack(torch._foreach_norm([p.grad for p in slices[m]])).square().sum()
+                for m in names])[None], self.mesh).sum(dim=0)
+            for m, sq in zip(names, partial):
+                squares[m] = squares[m] + sq if m in squares else sq
         histograms = {}
         if self.grad_histograms:
+            full = {m: [p.grad for p in ps] for m, ps in modules.items()}
+            for m, ps in slices.items():
+                full.setdefault(m, []).extend(sharded[id(p)].gather(p.grad) for p in ps)
             histograms = {m: _histogram(torch.cat([x.flatten().float() for x in g]))
-                          for m, g in modules.items()}
+                          for m, g in full.items()}
         state.optimizer.step()
         state.scheduler.step()
         if self.smooth_mi:

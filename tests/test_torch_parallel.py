@@ -19,6 +19,7 @@ import os
 import pickle
 import subprocess
 import sys
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -65,9 +66,11 @@ GRADIENT_NOISE = 5e-8
 STATISTICS = ("running_mean", "running_var", "centroids")
 
 
-def run_ranks(directory, spec: dict, world: int) -> list:
+def run_ranks(directory, spec: dict, world: int, local_world: Optional[int] = None) -> list:
     """Runs ``spec`` on ``world`` ranks, each a subprocess with torchrun's
-    environment; returns each rank's result."""
+    environment, on nodes of ``local_world`` ranks (default: one node);
+    returns each rank's result."""
+    local_world = local_world or world
     spec = dict(spec, init_method=f"file://{directory}/init",
                 output=os.path.join(str(directory), "rank%d.pt"))
     spec_path = os.path.join(str(directory), "spec.pkl")
@@ -76,8 +79,9 @@ def run_ranks(directory, spec: dict, world: int) -> list:
     procs = []
     try:
         for rank in range(world):
-            env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
-                       LOCAL_WORLD_SIZE=str(world), OMP_NUM_THREADS="1")
+            env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                       LOCAL_RANK=str(rank % local_world), LOCAL_WORLD_SIZE=str(local_world),
+                       OMP_NUM_THREADS="1")
             procs.append(subprocess.Popen([sys.executable, WORKER, spec_path], cwd=REPO,
                                           env=env, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True))
@@ -309,15 +313,14 @@ def _jax_config():
     return config
 
 
-@pytest.fixture(scope="module")
-def jax_and_two_ranks(jax_weights, tmp_path_factory):
-    """Two full-phase steps: the JAX trainer's one-device train step on the
-    global batch, and two ranks with the same weights and the same numpy
-    noise, drawn for the global batch in each rank."""
+JAX_SPEC = dict(mode="train", steps=2, pretraining_steps=0, numpy_noise=True)
+
+
+def jax_train_steps(jax_weights, record: dict) -> list:
+    """The JAX trainer's one-device train step on the global batch, from the
+    same weights with the same numpy noise and schedules as each step of a
+    rank's ``record`` of ``JAX_SPEC``: each step's metrics and state."""
     model, variables, vgg_variables = jax_weights
-    ranks = run_ranks(tmp_path_factory.mktemp("jax_parity"),
-                      dict(mode="train", steps=2, pretraining_steps=0, numpy_noise=True,
-                           variables=variables), 2)
     jax_tr = jax_trainer.Trainer(_jax_config(), model, NullDataset(), Logger(),
                                  smooth_mi=True, vgg_variables=vgg_variables)
     step = jax_tr._make_train_step(False)
@@ -330,26 +333,25 @@ def jax_and_two_ranks(jax_weights, tmp_path_factory):
     obs, acts = worker.global_batch()
     runs = []
     with patched_noise():
-        for record in ranks[0]["steps"]:
+        for step_record in record["steps"]:
             NOISE.reset()
             state, metrics = step(
                 state, jnp.asarray(obs), jnp.asarray(acts),
-                jnp.asarray(record["metrics"]["ground_truth_observations"], jnp.int32),
-                jnp.asarray(record["metrics"]["gumbel_temperature"], jnp.float32),
+                jnp.asarray(step_record["metrics"]["ground_truth_observations"], jnp.int32),
+                jnp.asarray(step_record["metrics"]["gumbel_temperature"], jnp.float32),
                 jax.random.PRNGKey(0), jax_tr.vgg_variables)
             metrics.pop("_plot_arrays")
             runs.append(dict(metrics=jax.device_get(metrics), state=jax.device_get(state)))
-    return ranks, runs
+    return runs
 
 
-def test_two_ranks_match_the_jax_train_step(jax_and_two_ranks):
+def assert_matches_jax_steps(rank: dict, runs: list) -> None:
     """The first step's loss, gradient norms, parameter updates (within
     Adam's sensitivity to the gradients' agreement, as
     test_torch_train.test_one_adam_step_matches_jax_train_step bounds
     them), BatchNorm statistics, centroids and MI matrix; both steps'
     losses."""
-    ranks, runs = jax_and_two_ranks
-    rank, run = ranks[0], runs[0]
+    run = runs[0]
     got, initial = rank["steps"][0]["state"], rank["initial"]
     training = worker.tiny_config(0)["training"]
     eps = 1e-8
@@ -375,6 +377,22 @@ def test_two_ranks_match_the_jax_train_step(jax_and_two_ranks):
                                    rtol=2e-3, err_msg=key)
     np.testing.assert_allclose([s["metrics"]["loss"] for s in rank["steps"]],
                                [float(r["metrics"]["loss"]) for r in runs], **TOL)
+
+
+@pytest.fixture(scope="module")
+def jax_and_two_ranks(jax_weights, tmp_path_factory):
+    """Two full-phase steps: two ranks with the JAX weights and the same
+    numpy noise, drawn for the global batch in each rank, and the JAX
+    trainer's one-device train step on the global batch."""
+    ranks = run_ranks(tmp_path_factory.mktemp("jax_parity"),
+                      dict(JAX_SPEC, variables=jax_weights[1]), 2)
+    return ranks, jax_train_steps(jax_weights, ranks[0])
+
+
+def test_two_ranks_match_the_jax_train_step(jax_and_two_ranks):
+    """``assert_matches_jax_steps`` on rank 0."""
+    ranks, runs = jax_and_two_ranks
+    assert_matches_jax_steps(ranks[0], runs)
 
 
 # --------------------------------------------------------------------- #
@@ -445,13 +463,14 @@ def test_init_distributed_reads_the_torchrun_environment(monkeypatch, tmp_path):
 
 
 def test_trainer_refuses_what_it_cannot_honour():
-    """tpu.model_parallel above 1 is not ported; tpu.data_parallel_devices
-    must be the ranks on the node (one, without a group)."""
+    """A tpu.model_parallel that does not divide the world (one rank,
+    without a group) is the JAX make_mesh's "does not cover";
+    tpu.data_parallel_devices must be the world (one, without a group)."""
     config = worker.tiny_config(0)
     model = make_model(config, "cpu", worker.MODEL_SEED)
     vgg = make_vgg("cpu", seed=worker.VGG_SEED)
     config["tpu"]["model_parallel"] = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="does not cover 1 rank"):
         Trainer(config, model, vgg=vgg)
     config["tpu"].update(model_parallel=1, data_parallel_devices=2)
     with pytest.raises(ValueError, match="data_parallel_devices is 2"):

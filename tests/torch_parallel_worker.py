@@ -1,4 +1,5 @@
-"""One rank of the port's data-parallel runs in tests/test_torch_parallel.py.
+"""One rank of the port's data- and tensor-parallel runs in
+tests/test_torch_parallel.py and tests/test_torch_tensor_parallel.py.
 
 Run as ``python tests/torch_parallel_worker.py <spec.pkl>`` with torchrun's
 environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``)
@@ -14,6 +15,7 @@ and state features 8, 3 actions, a global batch of 4 sequences of 3
 frames.
 """
 import contextlib
+import copy
 import os
 import pickle
 import sys
@@ -23,7 +25,10 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from playablevideogeneration_tpu_torch.data.transforms import get_final_transforms  # noqa: E402
+from playablevideogeneration_tpu_torch.data.video_dataset import VideoDataset  # noqa: E402
 from playablevideogeneration_tpu_torch.models import action as port_action  # noqa: E402
+from playablevideogeneration_tpu_torch.models import layers  # noqa: E402
 from playablevideogeneration_tpu_torch.models import caddy as port_caddy  # noqa: E402
 from playablevideogeneration_tpu_torch.models.centroids import update_centroids  # noqa: E402
 from playablevideogeneration_tpu_torch.models.gumbel import gumbel_softmax  # noqa: E402
@@ -42,12 +47,17 @@ SIZE, FRAMES, BATCH, ACTIONS = 16, 3, 4, 3
 MODEL_SEED, VGG_SEED = 3, 4
 
 
-def tiny_config(pretraining_steps: int, remat: bool = False, save_root: str = "") -> dict:
+def tiny_config(pretraining_steps: int, remat: bool = False, save_root: str = "",
+                **tpu) -> dict:
+    """The tiny model's config; ``tpu`` entries (``model_parallel``,
+    ``tp_min_channels``, ``data_parallel_devices``) join its ``tpu``
+    block."""
     config = make_synthetic_config(
         height=SIZE, width=SIZE, actions_count=ACTIONS, batch_size=BATCH,
         observations_count=FRAMES, observation_stacking=1, hidden_state_size=8,
         state_features=8, pretraining_steps=pretraining_steps, remat=remat)
     config["logging"]["save_root_directory"] = save_root
+    config["tpu"].update(tpu)
     return config
 
 
@@ -58,11 +68,11 @@ def global_batch(seed: int = 6):
             rng.integers(0, ACTIONS, (BATCH, FRAMES)).astype(np.int32))
 
 
-def rows(array):
-    """This rank's contiguous rows of a global array."""
-    info = mesh.process_info()
-    n = len(array) // info.world
-    return array[info.rank * n:(info.rank + 1) * n]
+def rows(array, model_parallel: int = 1):
+    """This rank's data index's contiguous rows of a global array."""
+    info = mesh.MeshInfo(mesh.process_info(), model_parallel)
+    n = len(array) // info.data_size
+    return array[info.data_index * n:(info.data_index + 1) * n]
 
 
 def numpy_noise():
@@ -86,36 +96,57 @@ def numpy_noise():
 
 
 def snapshot(trainer: Trainer) -> dict:
-    """The training state and the step's averaged gradients, copied."""
-    optimizer = trainer.state.optimizer
+    """The training state and the step's averaged gradients, copied, in
+    full tensors (a sharded parameter's, its moments' and its gradient's
+    slices gathered over the model group)."""
+    state = trainer.state.state_dict()
+    names = [name for name, _ in trainer.model.named_parameters()]
+    sharded = layers.sharded_layers(trainer.model)
     return dict(
-        model={k: v.detach().clone() for k, v in trainer.model.state_dict().items()},
-        adam={name: {k: v.clone() for k, v in optimizer.state[p].items()}
-              for name, p in trainer.model.named_parameters()},
-        grads={name: p.grad.clone() for name, p in trainer.model.named_parameters()
-               if p.grad is not None},
+        model={k: v.detach().clone() for k, v in state["model"].items()},
+        adam={names[i]: {k: v.clone() for k, v in slots.items()}
+              for i, slots in state["optimizer"]["state"].items()},
+        grads={name: sharded[name].gather(p.grad) if name in sharded else p.grad.clone()
+               for name, p in trainer.model.named_parameters() if p.grad is not None},
         mi_matrix=trainer.state.mi_matrix.clone(), step=trainer.state.step)
 
 
 def train(spec: dict) -> dict:
     """``spec["steps"]`` train steps of the smooth-MI trainer on this rank's
-    rows of the global batch: the model seeded, or from ``variables`` (the
-    JAX layout); optionally resumed from the checkpoint ``resume`` first
-    and saved as ``save`` after.  Returns the metrics and state of every
-    step (and of the resumed state)."""
+    data index's rows of the global batch (or of ``spec["batch"]``, or the
+    first batch the trainer's loader gives from the dataset at
+    ``spec["dataset"]``): the model seeded, or from ``variables`` (the JAX
+    layout); ``spec["tpu"]`` joins the config's ``tpu`` block; optionally
+    resumed from the checkpoint ``resume`` first and saved as ``save``
+    after.  Returns the metrics, gradient histograms and state of every
+    step (and of the resumed state), the batch and the sharded layers."""
+    tpu = spec.get("tpu", {})
     config = tiny_config(spec["pretraining_steps"], spec.get("remat", False),
-                         spec.get("save_root", ""))
+                         spec.get("save_root", ""), **tpu)
     model = port_caddy.make_model(config, "cpu", MODEL_SEED)
     if spec.get("variables") is not None:
         load_jax_variables(model, spec["variables"])
-    trainer = Trainer(config, model, smooth_mi=True, vgg=make_vgg("cpu", seed=VGG_SEED))
+    dataset = None
+    if spec.get("dataset"):
+        batching = dict(config["training"]["batching"], observations_count=FRAMES)
+        dataset = VideoDataset(spec["dataset"], batching,
+                               get_final_transforms(config)["train"])
+    trainer = Trainer(config, model, smooth_mi=True, vgg=make_vgg("cpu", seed=VGG_SEED),
+                      dataset=dataset)
     trainer.init_state()
-    result = {"process": mesh.process_info(), "initial": snapshot(trainer)}
+    result = {"process": mesh.process_info(), "initial": snapshot(trainer),
+              "sharded": list(layers.sharded_layers(model))}
     if spec.get("resume"):
         trainer.load_checkpoint(spec["resume"])
         result["resumed"] = snapshot(trainer)
-    observations, actions = global_batch()
-    batch = type("Batch", (), dict(observations=rows(observations), actions=rows(actions)))
+    if dataset is not None:
+        batch = list(trainer.dataloader)[0]
+    else:
+        observations, actions = spec.get("batch") or global_batch()
+        m = tpu.get("model_parallel", 1)
+        batch = type("Batch", (), dict(observations=rows(observations, m),
+                                       actions=rows(actions, m)))
+    result["batch"] = (batch.observations, batch.actions)
     noise = None
     saved = port_action.reparameterized_sample, port_caddy.gumbel_softmax_sample
     if spec.get("numpy_noise"):
@@ -127,7 +158,8 @@ def train(spec: dict) -> dict:
             if noise is not None:
                 noise.reset()
             metrics = trainer.train_step(batch)
-            steps.append(dict(metrics=metrics, state=snapshot(trainer)))
+            histograms = {k: metrics.pop(k) for k in list(metrics) if k.startswith("_grad_hist/")}
+            steps.append(dict(metrics=metrics, state=snapshot(trainer), histograms=histograms))
     finally:
         port_action.reparameterized_sample, port_caddy.gumbel_softmax_sample = saved
     if spec.get("save"):
@@ -167,7 +199,8 @@ def units(spec: dict) -> dict:
     x, cotangent = rows(x).clone().requires_grad_(), rows(cotangent)
     p1, p2 = rows(p1).clone().requires_grad_(), rows(p2).clone().requires_grad_()
     grouped = torch.distributed.is_initialized()
-    with mesh.global_batch(mesh.process_info()) if grouped else contextlib.nullcontext():
+    with (mesh.global_batch(mesh.make_mesh(mesh.process_info())) if grouped
+          else contextlib.nullcontext()):
         y = norm(x)
         (y * cotangent).sum().backward()
         mi = losses.mutual_information_loss(p1, p2, lamb=0.8)
@@ -182,7 +215,45 @@ def units(spec: dict) -> dict:
                 centroids=new_centroids)
 
 
-MODES = {"train": train, "units": units}
+def tp_units(spec: dict) -> dict:
+    """A 3x3 conv with a bias, a dense layer and a conv whose 9 output
+    channels no model axis of 2 divides, in f32: each unsharded, and
+    through ``layers.shard_model`` (output channels at least 8) on a model
+    group of every rank; forward and backward on the same input and
+    cotangent.  Returns, per layer, both outputs, input gradients, weight
+    gradients (the sharded one's slice) and bias gradients, the names that
+    ``shard_model`` sharded, and the weights of ``layers.unsharded_copy``
+    and of the unsharded layers."""
+    rng = np.random.default_rng(9)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    torch.manual_seed(0)
+    plain = torch.nn.ModuleDict(dict(
+        conv=layers.Conv2d(6, 8, 3, True, torch.float32),
+        dense=layers.Linear(6, 8, torch.float32),
+        odd=layers.Conv2d(6, 9, 3, True, torch.float32)))
+    inputs = dict(conv=normal(3, 6, 5, 7), dense=normal(5, 6), odd=normal(3, 6, 5, 7))
+    cotangents = dict(conv=normal(3, 8, 5, 7), dense=normal(5, 8), odd=normal(3, 9, 5, 7))
+    sharded = copy.deepcopy(plain)
+    info = mesh.make_mesh(mesh.process_info(), spec["model_parallel"])
+    result = {"sharded": layers.shard_model(sharded, info, 8),
+              "unsharded_copy": {k: v.clone() for k, v in
+                                 layers.unsharded_copy(sharded).state_dict().items()},
+              "plain_state": {k: v.clone() for k, v in plain.state_dict().items()}}
+    for name in plain:
+        for side, module in (("plain", plain[name]), ("sharded", sharded[name])):
+            x = inputs[name].clone().requires_grad_()
+            y = module(x)
+            (y * cotangents[name]).sum().backward()
+            result[f"{name}/{side}"] = dict(y=y.detach(), x_grad=x.grad,
+                                            weight_grad=module.weight.grad,
+                                            bias_grad=module.bias.grad)
+    return result
+
+
+MODES = {"train": train, "units": units, "tp_units": tp_units}
 
 
 def main():
