@@ -1,6 +1,8 @@
 """Drives the PyTorch/CUDA port's play and training routes, its training
 loop, the entry points after training, the distribution metrics, the
-convergence soak and the Faster R-CNN detector, on one NVIDIA Hopper GPU.
+convergence soak, the Faster R-CNN detector, data- and tensor-parallel
+training and the tools (the step profiler, the input-pipeline bench and the
+CLI soak), on one NVIDIA Hopper GPU.
 
 Run from the repository root on a machine with an H100:
 
@@ -186,14 +188,26 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    Prints the sharded layers and the parameter bytes per rank, ms per step
    per rank (median and range of steps 2-4), one step's collectives
    replayed alone and their share of the step, and peak memory per rank.
+17. tools: ``tools.profile_step`` at its defaults (the bf16 flagship
+   trainer at batch 8, 12 frames) but one profiled step after a warm one:
+   K1 66 and K2 33 per profiled step in the trace, the by-group and by-scope
+   tables within 1 % of the profiler's own CUDA time, the unattributed
+   share, the trace's bytes and parse seconds; ``tools.bench_input_pipeline``
+   as its own process at BAIR's loader shape (256x256, batch 8, 7 frames,
+   21 timed batches per worker mode), frames/s beside phase 10's loop step
+   period; ``tools.gpu_soak``: train, resume, play, build and evaluate, each
+   a ``python -m`` process on the card from a YAML file on disk, every
+   backbone on random weight files found through
+   ``PVG_PRETRAINED_WEIGHTS``, every exit code 0 and the metrics validated;
+   the phase's seconds.
 
 It prints JSON lines as it goes, then the kernels' summary line (``ms``,
 ``cold_ms``, ``plain_ms`` and ``bound_ms`` there are per step of the
 kernel's route: the sum over a bf16 play step's launches for K1 and K3,
 over a bf16 training step's 33 K2 launches for K2; ``launches`` counts
-phase 4's, 7's, 10's, 11's, 13's, 15's and 16's runs, without the f32
-parity checks), the card's nvidia-smi line, and last ``{"ok": true, "device":
-{...}}``.
+phase 4's, 7's, 10's, 11's, 13's, 15's, 16's and 17's runs in this process,
+without the f32 parity checks and the soak's stage processes), the card's
+nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -295,7 +309,8 @@ from playablevideogeneration_tpu_torch.ops.cuda.fused_norm_act import (
     fused_batch_norm_leaky_relu,
 )
 from playablevideogeneration_tpu_torch.parallel import mesh
-from playablevideogeneration_tpu_torch.tools import convergence_soak
+from playablevideogeneration_tpu_torch.tools import convergence_soak, gpu_soak, profile_step
+from playablevideogeneration_tpu_torch.tools.profile_step import breakdown
 from playablevideogeneration_tpu_torch.training.trainer import Trainer
 from playablevideogeneration_tpu_torch.utils.checkpoint import STATE_FILE
 from playablevideogeneration_tpu_torch.utils.logging import Logger
@@ -472,7 +487,6 @@ TEST_VIDEOS, TEST_VIDEO_FRAMES = 8, EVAL_FRAMES + 1
 # The reference checkpoint's per-gate ConvLSTM convolutions, in the order
 # the port's fused gate convolution stacks them.
 REFERENCE_GATES = ("input_gate", "forget_gate", "output_gate", "cell_gate")
-LPIPS_CHANNELS = (64, 128, 256, 512, 512)
 # configs/evaluation/01_bair.yaml as a dict, since the card's machine has no
 # PyYAML; tests/test_torch_offline_eval.py pins it to the file.
 BAIR_EVALUATION_CONFIG = {
@@ -501,21 +515,6 @@ BACKBONE_ATOL, BACKBONE_RTOL = 1e-4, 1e-4
 # Cold timings rotate over distinct inputs totalling at least this much,
 # three times the 50 MB L2, so that each launch finds its inputs in HBM.
 COLD_BYTES = 150e6
-# Kernel-name fragments that sort the profiled step's device time.
-KERNEL_GROUPS = [
-    ("port_kernels", ("gates_fwd_kernel", "gates_bwd_kernel",
-                      "batch_norm_leaky_relu_kernel")),
-    ("layout_transpose", ("nchwToNhwc", "nhwcToNchw", "tensorTransform")),
-    ("convolution", ("fprop", "dgrad", "wgrad", "xmma", "winograd", "cutlass", "gemm",
-                     "conv")),
-    ("upsample", ("upsample",)),
-    ("pooling", ("pool",)),
-    ("batch_norm", ("batch_norm",)),
-    ("reduction", ("reduce",)),
-    ("optimizer", ("multi_tensor_apply", "adam")),
-    ("copy_cast", ("copy",)),
-    ("elementwise", ("elementwise",)),
-]
 TOLERANCE = {torch.float32: dict(rtol=1e-5, atol=1e-5),
              torch.bfloat16: dict(rtol=2 ** -7, atol=1e-5)}
 DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -1269,13 +1268,13 @@ def check_evaluation(recorder: LoopRecorder) -> None:
     require(gt["validation/gt_actions/actions_accuracy"] > 0.999, gt)
 
 
-def train_loop(root: str) -> dict:
+def train_loop(root: str) -> tuple:
     """Phase 10: BAIR's config (LOOP_OVERRIDES) through ``cli.train.train``
     on in-memory synthetic videos: 2 pretraining and 4 full-phase steps,
     checkpoints, the three evaluation passes; the state restored exactly by
     a fresh run; a resumed run's 2 more steps; then, on the evaluated
     trainer, two profiled loop steps and bare ``train_step``s.  Returns the
-    two runs' launch counts."""
+    two runs' launch counts and the loop's step period in ms."""
     from torch.profiler import ProfilerActivity, profile
 
     # The defaults, which phases 5 and 8 turned off: a run's f32
@@ -1284,7 +1283,7 @@ def train_loop(root: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     config = loop_config(root)
     config["tpu"]["pretrained_weights_dir"] = os.path.join(root, "vgg")
-    write_vgg_weights(os.path.join(root, "vgg", "vgg19.npz"), WEIGHTS_SEED)
+    gpu_soak.write_vgg_weights(os.path.join(root, "vgg", "vgg19.npz"), WEIGHTS_SEED)
     pretraining_steps = config["training"]["pretraining_steps"]
     datasets = loop_datasets(config)
     for name, frames, batches in (("train", LOOP_FRAMES, 6), ("validation", EVAL_FRAMES, 2)):
@@ -1382,7 +1381,7 @@ def train_loop(root: str) -> dict:
          kernels_per_step=sum(k[2] for k in kernels))
     emit(phase="loop_step_breakdown", **breakdown(kernels, 25))
     emit(phase="train_loop", launches=launches)
-    return launches
+    return launches, loop_step_ms
 
 
 def per_frame_launches(frames: int) -> dict:
@@ -1477,26 +1476,12 @@ def test_split_videos(config: dict) -> list:
             for i in range(TEST_VIDEOS)]
 
 
-def write_vgg_weights(path: str, seed: int) -> None:
-    """A random VGG19 seeded with ``seed`` as ``tools/convert_weights.py``
-    writes ``vgg19.npz`` (flax names and HWIO kernels)."""
-    vgg = make_vgg("cpu", torch.float32, seed)
-    params = {}
-    for name, conv in vgg.named_children():
-        params[name] = {"kernel": conv.weight.detach().permute(2, 3, 1, 0).numpy(),
-                        "bias": conv.bias.detach().numpy()}
-    save_variables_npz({"params": params}, path)
-
-
 def write_metric_weights(directory: str) -> None:
     """Random, seeded ``vgg19.npz`` (the metrics' fallback's weights) and
     ``lpips_lin.npz`` in the converter's layout (one (C,) head per level),
     so that the pretrained VGG19 and LPIPS run."""
-    write_vgg_weights(os.path.join(directory, "vgg19.npz"), RANDOM_VGG_SEED)
-    rng = np.random.default_rng(SEED)
-    np.savez(os.path.join(directory, "lpips_lin.npz"),
-             **{f"lin{i}": rng.uniform(0, 1, c).astype(np.float32)
-                for i, c in enumerate(LPIPS_CHANNELS)})
+    gpu_soak.write_vgg_weights(os.path.join(directory, "vgg19.npz"), RANDOM_VGG_SEED)
+    gpu_soak.write_lpips_weights(os.path.join(directory, "lpips_lin.npz"), SEED)
 
 
 def evaluation_config(root: str) -> dict:
@@ -2943,24 +2928,158 @@ def tensor_parallel_phase(root: str, phase15: dict) -> dict:
     return launches
 
 
-def kernel_group(name: str) -> str:
-    return next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)), "other")
+# Phase 17, the tools: profile_step at its defaults (the JAX tool's: batch
+# 8, 12 frames, 256x256) but one profiled step, not 3, since a step's trace
+# is 80 MB of JSON (3 steps: 242 MB, 915 160 events, captured in 34 s and
+# parsed in 9 s on an H100 machine); bench_input_pipeline at BAIR's loader
+# shape over 4 flat videos of 48 frames (4 x 42 samples, 21 batches of 8
+# per epoch); gpu_soak's five stages.
+PROFILE_STEPS = 1
+# The by-group and by-scope totals against the profiler's own kernel sum.
+PROFILE_TOTAL_RTOL = 0.01
+PIPELINE_VIDEOS, PIPELINE_LENGTH, PIPELINE_MIN_BATCHES = 4, 48, 20
+TOOL_TIMEOUT_S = 600
+# The one required family of gpu_soak's validation that the card's machine
+# cannot compute: the SVM action classification needs scikit-learn, which
+# is not installed there.  Without it the tool exits 1 with this family
+# missing and its marker written; the phase requires those to be the only
+# failures and checks every other family itself.
+SOAK_EXEMPT_FAMILY, SOAK_EXEMPT_PACKAGE = "action_classification/linear/accuracy", "sklearn"
 
 
-def breakdown(kernels, top: int) -> dict:
-    """The profiled step's device time by kernel group, its ``top``
-    kernels, and each of the port's kernels on its own."""
-    groups = {}
-    for name, ms, calls in kernels:
-        total = groups.setdefault(kernel_group(name), dict(ms=0.0, calls=0.0))
-        total["ms"] += ms
-        total["calls"] += calls
+def profile_tool(root: str) -> dict:
+    """Phase 17a: ``tools.profile_step`` on the bf16 flagship trainer at its
+    defaults but PROFILE_STEPS: K1 66 and K2 33 per profiled step in the
+    trace, and as many per step at the wrappers' counts (the warm step
+    included); the by-group and by-scope totals within 1 % of
+    ``key_averages()``'s CUDA time.  Returns the launch counts."""
+    trace_dir = os.path.join(root, "profile_trace")
+    steps = PROFILE_STEPS + 1  # the warm step and the profiled ones
+    expected = {"convlstm_gates": 6 * DYNAMICS_STEPS * steps,
+                "convlstm_gates_bwd": 3 * DYNAMICS_STEPS * steps, "fused_norm_act": 0}
+    reset_launches()
+    t0 = time.perf_counter()
+    prof = profile_step.capture(LOOP_BATCH, PROFILE_STEPS, 256, 256, TRAIN_FRAMES, trace_dir)
+    capture_s = time.perf_counter() - t0
+    launches = read_launches()
+    require(launches == expected, f"the profiled trainer launched {launches}")
+    # The ranges' projections on the device's timeline are CUDA events too.
+    kernel_us = sum(e.device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.is_user_annotation)
+    del prof
+    gc.collect()
+    result = profile_step.analyze(profile_step.find_trace(trace_dir))
+    require(result["time_key"] == "device_us" and result["steps"] == PROFILE_STEPS,
+            (result["time_key"], result["steps"]))
 
-    def rows(ks):
-        return [dict(kernel=k[0][:90], ms=k[1], calls=k[2]) for k in ks]
+    def per_step(fragment):
+        return sum(r["calls"] for r in result["rows"] if fragment in r["name"]) / PROFILE_STEPS
 
-    return dict(groups=groups, top=rows(kernels[:top]),
-                port=rows(k for k in kernels if kernel_group(k[0]) == "port_kernels"))
+    gates = {"convlstm_gates": per_step("gates_fwd_kernel"),
+             "convlstm_gates_bwd": per_step("gates_bwd_kernel")}
+    require(gates == {"convlstm_gates": 6 * DYNAMICS_STEPS,
+                      "convlstm_gates_bwd": 3 * DYNAMICS_STEPS}, f"per profiled step: {gates}")
+    # K2 runs only in the backward pass: its scope comes through its forward
+    # op's sequence number.
+    gate_scopes = {(r["name"][:60], r["scope"]) for r in result["rows"]
+                   if "gates_fwd_kernel" in r["name"] or "gates_bwd_kernel" in r["name"]}
+    require({scope for _, scope in gate_scopes} == {"dynamics (convlstm hourglass)"},
+            f"the gate kernels' scopes: {sorted(gate_scopes)}")
+    totals = {table: sum(result[table].values()) for table in ("by_category", "by_scope")}
+    for table, us in totals.items():
+        require(abs(us - kernel_us) <= PROFILE_TOTAL_RTOL * kernel_us,
+                f"{table} sums to {us} us against the profiler's {kernel_us}")
+
+    def per_step_ms(table):
+        return {k: us / 1e3 / PROFILE_STEPS for k, us in result[table].items()}
+
+    emit(phase="profile_step", batch=LOOP_BATCH, frames=TRAIN_FRAMES, steps=PROFILE_STEPS,
+         capture_s=capture_s, trace=result["trace"],
+         kernel_ms_per_step=kernel_us / 1e3 / PROFILE_STEPS, table_totals_us=totals,
+         gate_launches_per_step=gates, by_group_ms_per_step=per_step_ms("by_category"),
+         by_scope_ms_per_step=per_step_ms("by_scope"),
+         unattributed_share=result["unattributed_share"],
+         unattributed_top=[dict(kernel=r["name"][:90], ms_per_step=r["device_us"] / 1e3
+                                / PROFILE_STEPS) for r in result["unattributed_top"][:5]],
+         top=[dict(kernel=r["name"][:90], scope=r["scope"], group=r["group"],
+                   ms_per_step=r["device_us"] / 1e3 / PROFILE_STEPS,
+                   calls_per_step=r["calls_per_step"]) for r in result["rows"][:10]])
+    return launches
+
+
+def pipeline_tool(loop_step_ms: float) -> None:
+    """Phase 17b: ``tools.bench_input_pipeline`` as its own process at BAIR's
+    loader shape (256x256, batch 8, 7 frames), at least 20 timed batches per
+    worker mode, beside phase 10's loop step period."""
+    batches = PIPELINE_VIDEOS * (PIPELINE_LENGTH - LOOP_FRAMES + 1) // LOOP_BATCH
+    require(batches >= PIPELINE_MIN_BATCHES, batches)
+    argv = ["--size", "256", "--batch-size", str(LOOP_BATCH), "--observations",
+            str(LOOP_FRAMES), "--videos", str(PIPELINE_VIDEOS), "--length", str(PIPELINE_LENGTH)]
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "playablevideogeneration_tpu_torch.tools.bench_input_pipeline",
+         *argv], capture_output=True, text=True, check=True, timeout=TOOL_TIMEOUT_S).stdout
+    seconds = time.perf_counter() - t0
+    result = json.loads(out.strip().splitlines()[-1])
+    modes = {mode: dict(result[mode], batch_ms=1e3 / result[mode]["batches_per_sec"])
+             for mode in ("thread", "process")}
+    require(all(m["frames_per_sec"] > 0 for m in modes.values()), modes)
+    emit(phase="bench_input_pipeline", argv=argv, timed_batches_per_mode=batches,
+         workers=result["workers"], **modes, batch_bytes=LOOP_BATCH * LOOP_FRAMES * 256 * 256
+         * 3 * 4, loop_step_ms=loop_step_ms,
+         loop_frames_per_sec=LOOP_BATCH * LOOP_FRAMES / (loop_step_ms / 1e3), seconds=seconds)
+
+
+def soak_tool(root: str) -> None:
+    """Phase 17c: ``tools.gpu_soak`` as its own process: all five stages
+    ran (each exits the tool with 1 when it fails) and the tool's
+    validation passed, but for SOAK_EXEMPT_FAMILY where SOAK_EXEMPT_PACKAGE
+    is not installed; every other required family is finite in
+    ``data.yml``."""
+    import yaml
+
+    soak_root = os.path.join(root, "gpu_soak")
+    exempt = importlib.util.find_spec(SOAK_EXEMPT_PACKAGE) is None
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "playablevideogeneration_tpu_torch.tools.gpu_soak", "--root",
+         soak_root], capture_output=True, text=True, timeout=TOOL_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    summaries = [line[len("[gpu_soak] "):] for line in proc.stdout.splitlines()
+                 if line.startswith("[gpu_soak] {")]
+    require(len(summaries) == 1, proc.stdout[-3000:] + proc.stderr[-5000:])
+    summary = json.loads(summaries[0])
+    require(list(summary["stage_seconds"]) == list(gpu_soak.STAGES), summary)
+    marker = SOAK_EXEMPT_FAMILY.split("/")[0] + "_unavailable"
+    want = {"missing_families": [SOAK_EXEMPT_FAMILY] * exempt,
+            "unavailable_markers": [marker] * exempt, "nonfinite": []}
+    require(proc.returncode == int(exempt)
+            and {k: summary[k] for k in want} == want, (proc.returncode, summary))
+    with open(os.path.join(soak_root, "out/evaluation_results/synthetic/data.yml")) as f:
+        metrics = yaml.safe_load(f)
+    for family in gpu_soak.REQUIRED:
+        if family != SOAK_EXEMPT_FAMILY or not exempt:
+            require(isinstance(metrics.get(family), float) and math.isfinite(metrics[family]),
+                    f"gpu_soak's {family}: {metrics.get(family)}")
+    emit(phase="gpu_soak", seconds=seconds, returncode=proc.returncode,
+         exempted={SOAK_EXEMPT_FAMILY: f"{SOAK_EXEMPT_PACKAGE} not installed"} if exempt
+         else {}, **summary)
+
+
+def tools_phase(root: str, loop_step_ms: float) -> dict:
+    """Phase 17: the step profiler, the input-pipeline bench and the CLI
+    soak (``tools.gpu_soak``: train, resume, play, build and evaluate, each
+    ``python -m`` on the card from its YAML file, every backbone on random
+    weight files found through ``PVG_PRETRAINED_WEIGHTS``; every stage's
+    exit code 0 and the metrics validated).  Returns the launch counts of
+    this process (the soak's stages are processes of their own)."""
+    start = time.perf_counter()
+    launches = profile_tool(root)
+    pipeline_tool(loop_step_ms)
+    soak_tool(root)
+    emit(phase="tools", seconds=time.perf_counter() - start, launches=launches)
+    return launches
 
 
 KERNEL_NAME = re.compile(r"\d+([a-z_]+?_kernel)I(13__nv_bfloat16|f)(?:Li(\d+)E)?")
@@ -3082,20 +3201,22 @@ def main() -> None:
     del trainer, batch
 
     with tempfile.TemporaryDirectory() as root:
-        loop_launches = train_loop(root)
+        loop_launches, loop_step_ms = train_loop(root)
         after_launches, eval_config, pair = after_training(root)
         distribution_metrics(root, eval_config, pair)
         soak_launches = convergence_soak_phase(root, gen)
         detector_phase(root)
         parallel_launches, phase15 = data_parallel_phase(root)
         tensor_parallel_launches = tensor_parallel_phase(root, phase15)
+        tools_launches = tools_phase(root, loop_step_ms)
 
     kernels = [dict(name=name, route="cuda",
                     source=f"playablevideogeneration_tpu_torch/ops/cuda/csrc/{source}.cu",
                     replaces=replaces,
                     launches=(play_launches[name] + train_launches[name] + loop_launches[name]
                               + after_launches[name] + soak_launches[name]
-                              + parallel_launches[name] + tensor_parallel_launches[name]),
+                              + parallel_launches[name] + tensor_parallel_launches[name]
+                              + tools_launches[name]),
                     max_abs_err=errors[name], ms=sums[name]["ms"],
                     cold_ms=sums[name]["cold_ms"],
                     plain_ms=sums[name]["plain_ms"], bound_ms=sums[name]["bound_ms"],

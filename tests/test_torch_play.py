@@ -262,5 +262,7 @@ def test_port_imports_no_jax():
         "evaluation.metrics.fid", "evaluation.metrics.fvd",
         # the convergence soak, the Faster R-CNN detector, the results plotter
         "tools", "tools.convergence_soak", "tools.action_space_diag",
-        "evaluation.metrics.frcnn", "evaluation.plotting.results_plotter")}
-    assert covered <= imported and len(imported) >= 56
+        "evaluation.metrics.frcnn", "evaluation.plotting.results_plotter",
+        # the step profiler, the input-pipeline bench and the CLI soak
+        "tools.profile_step", "tools.bench_input_pipeline", "tools.gpu_soak")}
+    assert covered <= imported and len(imported) >= 59
