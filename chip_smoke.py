@@ -1,8 +1,9 @@
 """Drives the PyTorch/CUDA port's play and training routes, its training
 loop, the entry points after training, the distribution metrics, the
 convergence soak, the Faster R-CNN detector, data- and tensor-parallel
-training and the tools (the step profiler, the input-pipeline bench and the
-CLI soak), on one NVIDIA Hopper GPU.
+training, the tools (the step profiler, the input-pipeline bench and the
+CLI soak) and the graphed inference routes against eager ones, on one
+NVIDIA Hopper GPU.
 
 Run from the repository root on a machine with an H100:
 
@@ -34,11 +35,13 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    update's autograd function (K1 forward, K2 backward) against autograd
    through the plain gate math (1e-5);
 4. play route: the bf16 flagship (configs/01_bair.yaml, seeded random
-   weights and BatchNorm statistics) through ``PlaySession``: start, three
+   weights and BatchNorm statistics) through ``PlaySession``, whose steps
+   and rollouts replay captured CUDA graphs: start, three
    ``generate_next``, ``generate_next_u8``, ``generate_next_interpolation``
    and a 64-action ``rollout``; every step must launch the gate kernel 3
-   times and the norm kernel 15 times, frames must be finite and in
-   [-1, 1], and the rollout must synchronise with the host once; one of
+   times and the norm kernel 15 times (a replay counts what its capture
+   launched), frames must be finite and in [-1, 1], and the rollout, its
+   capture included, must synchronise with the host once; one of
    the model's frozen BatchNorm + LeakyReLU calls, profiled, must run
    exactly one kernel, K3 (the BatchNorm's fold runs inside it);
 5. parity: the same weights in f32 with TF32 off through the kernels on the
@@ -49,8 +52,11 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    more than 100 MB of distinct inputs), beside its memory bound and its
    plain version's time, and likewise K1 and K2 at the loop's batch of 8
    and K3 at the three largest shapes of an evaluation batch; the play
-   step's latency, the rollout's frame rate, and the step's kernel count
-   and device-time breakdown;
+   route graphed (``PlaySession``) and eager (``model.play_step`` op by
+   op): the step's latency, the interactive uint8 step's, the rollout's
+   frame rate, and the step's kernel count, device-time breakdown and idle
+   share (a graph's kernels reach the profiler as kernels, without the
+   operators that launched them at capture);
 7. train route: the bf16 flagship trainer (batch 16, 12 frames, smooth MI,
    per-step activation checkpointing, seeded weights and batch) takes one
    pretraining and three full-phase steps; each must give a finite loss and
@@ -89,9 +95,10 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    host), evaluation seconds, checkpoint size and save/load seconds, peak
    memory, and the device's idle share over two profiled loop steps.
 11. after training, on phase 10's run and its ``latest`` checkpoint, at
-   BAIR's full width in bf16: the play CLI (``cli.play.load_play_session``
-   and its scripted 64-frame rollout: 3 K1 + 15 K3 launches per frame, no
-   K2, one synchronisation, uint8 frames; frames/s), ``cli.interpolate``
+   BAIR's full width in bf16, every play step and builder forward a graph
+   replay: the play CLI (``cli.play.load_play_session`` and its scripted
+   64-frame rollout: 3 K1 + 15 K3 launches per frame, no K2, one
+   synchronisation, uint8 frames; frames/s), ``cli.interpolate``
    (11 factors x 4 frames, in memory), a reference ``.pth.tar`` written
    from the played weights and imported by ``Trainer.load_reference_weights``
    into a model seeded otherwise (every tensor bit for bit, then a play
@@ -130,11 +137,11 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
 13. convergence soak: ``tools.convergence_soak`` in bf16 on
    docs/CONVERGENCE.md's breakout_fixed_row setting (3 actions, 1-D
    direction latent, the square's row pinned; 48x48 frames, hidden 32,
-   batch 16, 6 frames, in-memory videos) cut to 40 pretraining and 160
-   full-phase steps with an evaluation every 100 and no example images,
-   run twice in one root (``--stop-at 100``, then resumed to 200): every
+   batch 16, 6 frames, in-memory videos) cut to 20 pretraining and 80
+   full-phase steps with an evaluation every 50 and no example images,
+   run twice in one root (``--stop-at 50``, then resumed to 100): every
    logged loss finite, ``eval_curve.jsonl`` and ``summary.json`` written,
-   the second run starting at step 101; K1 and K2 15 times per train step
+   the second run starting at step 51; K1 and K2 15 times per train step
    and K3 never, K1 15 and K3 86 times per evaluation batch of 8 x 6
    frames; K1, K2 and K3 bit for bit against their plain versions at every
    (shape, dtype) the soak gave them.  Prints the ms per train step
@@ -200,12 +207,26 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    backbone on random weight files found through
    ``PVG_PRETRAINED_WEIGHTS``, every exit code 0 and the metrics validated;
    the phase's seconds.
+18. graphed routes: BAIR's model config (the bf16 flagship at full width)
+   with seeded weights.  The graphed ``PlaySession`` against ``EagerPlay``
+   (``model.play_step`` op by op from the same state), noise off and on:
+   3 ``generate_next``, a ``generate_next_u8``, a
+   ``generate_next_interpolation`` and a 64-frame rollout bit for bit, 3
+   K1 and 15 K3 per step under replay, one synchronisation per rollout, a
+   ``block=False`` frame unchanged by two later steps, and weights loaded
+   in place mid-session seen by the next step (one more capture).  The
+   builder over 2 batches of 8 x 30 and a ragged batch of 4, graphed
+   (twice: with its captures, then replays only) against eager: frames and
+   metadata (``inferred_action``, ``encoded_action``) bit for bit, 87 K1 +
+   446 K3 per batch, one program per batch shape; seconds per batch both
+   ways, the device's busy time per batch, peak memory with the graph
+   pools; beside phase 6's play times both ways.
 
 It prints JSON lines as it goes, then the kernels' summary line (``ms``,
 ``cold_ms``, ``plain_ms`` and ``bound_ms`` there are per step of the
 kernel's route: the sum over a bf16 play step's launches for K1 and K3,
 over a bf16 training step's 33 K2 launches for K2; ``launches`` counts
-phase 4's, 7's, 10's, 11's, 13's, 15's, 16's and 17's runs in this process,
+phase 4's, 7's, 10's, 11's, 13's, 15's, 16's, 17's and 18's runs in this process,
 without the f32 parity checks and the soak's stage processes), the card's
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -315,6 +336,7 @@ from playablevideogeneration_tpu_torch.training.trainer import Trainer
 from playablevideogeneration_tpu_torch.utils.checkpoint import STATE_FILE
 from playablevideogeneration_tpu_torch.utils.logging import Logger
 from playablevideogeneration_tpu_torch.utils import pretrained
+from playablevideogeneration_tpu_torch.utils.tensor_ops import sequence_to_nchw
 from playablevideogeneration_tpu_torch.utils.pretrained import (
     RANDOM_VGG_SEED,
     load_variables_npz,
@@ -855,61 +877,150 @@ def time_loop_kernels(gen) -> None:
                     elements * 2 * size + 16 * shape[1], elements * NORM_OPS_PER_ELEMENT)
 
 
-def time_route(model, obs: np.ndarray, actions: np.ndarray) -> dict:
-    """Phase 6b: play-step latency, rollout frame rate and the step's
-    device-time breakdown on the bf16 flagship."""
+class EagerPlay:
+    """The play route op by op, as ``PlaySession`` ran it before its steps
+    became graph replays: ``model.play_step`` chained from one state, the
+    variations drawn from a generator seeded like the session's (one row
+    per step, N rows at once for a rollout).  The graphed session is held
+    against it bit for bit (phase 18) and timed beside it (phase 6)."""
+
+    def __init__(self, model, obs: np.ndarray, noise: bool = False, seed: int = SEED):
+        self.model, self.noise = model, noise
+        self.generator = torch.Generator(device="cuda").manual_seed(seed)
+        self.eye = torch.eye(model.actions_count, device="cuda")
+        self.carry = model.init_play(1)
+        self.window = torch.as_tensor(obs)[None].to("cuda", model.dtype)
+
+    def variations(self, count: int) -> torch.Tensor:
+        shape = (count, self.model.action_space_dimension)
+        if self.noise:
+            return torch.randn(shape, generator=self.generator, device="cuda")
+        return torch.zeros(shape, device="cuda")
+
+    def step(self, action: int, variation=None) -> torch.Tensor:
+        """The (H, W, 3) frame in the model dtype, on the card."""
+        variation = self.variations(1) if variation is None else variation
+        self.carry, frame, self.window = self.model.play_step(
+            self.carry, self.window, self.eye[action:action + 1], variation)
+        return frame[0]
+
+    def interpolation(self, first: int, second: int, factor: float) -> torch.Tensor:
+        centroids = self.model.centroids
+        selected = second if factor > 0.5 else first
+        interpolated = (centroids[second] - centroids[first]) * factor + centroids[first]
+        return self.step(selected, (interpolated - centroids[selected])[None])
+
+    def rollout(self, actions) -> np.ndarray:
+        variations = self.variations(len(actions))
+        return torch.stack([to_uint8(self.step(int(a), variations[i:i + 1]))
+                            for i, a in enumerate(actions)]).cpu().numpy()
+
+
+def to_uint8(frame: torch.Tensor) -> torch.Tensor:
+    return ((frame.clamp(-1.0, 1.0) + 1.0) * 127.5).to(torch.uint8)
+
+
+def profile_steps(step, steps: int = 10) -> tuple:
+    """``steps`` synchronised calls of ``step`` under ``torch.profiler``:
+    (kernels as (name, ms, calls) per step by time, host ms per step)."""
     from torch.profiler import ProfilerActivity, profile
 
-    session = PlaySession(model).start(obs)
-    onehot = torch.eye(model.actions_count, device="cuda")[:1]
-    variation = torch.zeros(1, model.action_space_dimension, device="cuda")
-    carry, window = session.carry, session.window
-    step_ms = []
-    for i in range(TIMED_STEPS + 5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        carry, _, window = model.play_step(carry, window, onehot, variation)
-        torch.cuda.synchronize()
-        if i >= 5:
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-    interactive_ms = []
-    for i in range(TIMED_STEPS + 5):
-        t0 = time.perf_counter()
-        session.generate_next_u8(int(actions[i % len(actions)]))
-        if i >= 5:
-            interactive_ms.append((time.perf_counter() - t0) * 1e3)
-    rollout_s = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        session.rollout(actions[:ROLLOUT_FRAMES])
-        rollout_s.append(time.perf_counter() - t0)
-
-    steps = 10
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
-            model.play_step(carry, window, onehot, variation)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     kernels = sorted(((e.key, e.device_time_total / steps / 1e3, e.count / steps)
                       for e in prof.key_averages()
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      key=lambda k: -k[1])
+    return kernels, wall_ms
+
+
+def synchronised_ms(call, count: int, warm: int = 5) -> list:
+    times = []
+    for i in range(count + warm):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call(i)
+        torch.cuda.synchronize()
+        if i >= warm:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def route_times(step, interactive, rollout, profiled) -> tuple:
+    """One way of playing timed: ``step(i)`` synchronised (play_step_ms,
+    median and p90), ``interactive(i)`` (interactive_u8_ms, ending in its
+    own readback), ``rollout()`` of ROLLOUT_FRAMES (rollout_fps, median of
+    3), and ``profiled()`` (one step) under the profiler for the kernels
+    per step, the device's busy time and its idle share against the
+    unprofiled step; returns (metrics, kernels)."""
+    step_ms = synchronised_ms(step, TIMED_STEPS)
+    rollout()  # a graphed rollout captures at its first call
+    interactive_ms = []
+    for i in range(TIMED_STEPS + 5):
+        t0 = time.perf_counter()
+        interactive(i)
+        if i >= 5:
+            interactive_ms.append((time.perf_counter() - t0) * 1e3)
+    rollout_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rollout()
+        rollout_s.append(time.perf_counter() - t0)
+    kernels, wall_ms = profile_steps(profiled)
     busy_ms = sum(k[1] for k in kernels) if kernels else None
     play_step_ms = statistics.median(step_ms)
     # The idle share sets the profiled device time against the unprofiled
     # step, since the profiler slows the host.
-    route = dict(play_step_ms=play_step_ms,
-                 play_step_p90_ms=float(np.percentile(step_ms, 90)),
-                 interactive_u8_ms=statistics.median(interactive_ms),
-                 rollout_fps=ROLLOUT_FRAMES / statistics.median(rollout_s),
-                 profiled_step_wall_ms=wall_ms, step_device_busy_ms=busy_ms,
-                 device_idle_share=None if busy_ms is None else 1 - busy_ms / play_step_ms,
-                 kernels_per_step=sum(k[2] for k in kernels))
+    return dict(play_step_ms=play_step_ms, play_step_p90_ms=float(np.percentile(step_ms, 90)),
+                interactive_u8_ms=statistics.median(interactive_ms),
+                interactive_u8_p90_ms=float(np.percentile(interactive_ms, 90)),
+                rollout_fps=ROLLOUT_FRAMES / statistics.median(rollout_s),
+                rollout_fps_all=[ROLLOUT_FRAMES / s for s in rollout_s],
+                profiled_step_wall_ms=wall_ms, step_device_busy_ms=busy_ms,
+                device_idle_share=None if busy_ms is None else 1 - busy_ms / play_step_ms,
+                kernels_per_step=sum(k[2] for k in kernels)), kernels
+
+
+def time_route(model, obs: np.ndarray, actions: np.ndarray) -> dict:
+    """Phase 6b: the play route on the bf16 flagship both ways, graphed
+    through ``PlaySession`` (a step is ``generate_next_u8(block=False)``:
+    the two input copies, the replay and the uint8 frame's copy on the
+    card) and eager (``model.play_step`` alone, the uint8 conversion and
+    readback after it, the rollout's steps one by one): latency, frame
+    rate, kernels and device time per step.  A graph's kernels reach the
+    profiler as kernels of their own, without the ``aten`` operators that
+    launched them at capture; the breakdown groups them by name."""
+    session = PlaySession(model).start(obs)
+    eager = EagerPlay(model, obs)
+    pick = lambda i: int(actions[i % len(actions)])  # noqa: E731
+    graphed, graphed_kernels = route_times(
+        lambda i: session.generate_next_u8(pick(i), block=False),
+        lambda i: session.generate_next_u8(pick(i)),
+        lambda: session.rollout(actions[:ROLLOUT_FRAMES]),
+        lambda: session.generate_next_u8(1, block=False))
+    carry, window = eager.carry, eager.window
+    onehot, variation = eager.eye[:1], eager.variations(1)
+
+    def bare_step(_):
+        nonlocal carry, window
+        carry, _frame, window = model.play_step(carry, window, onehot, variation)
+
+    op_by_op, eager_kernels = route_times(
+        bare_step, lambda i: to_uint8(eager.step(pick(i))).cpu().numpy(),
+        lambda: eager.rollout(actions[:ROLLOUT_FRAMES]), lambda: bare_step(0))
+    route = dict(graphed=graphed, eager=op_by_op,
+                 play_step_speedup=op_by_op["play_step_ms"] / graphed["play_step_ms"],
+                 rollout_speedup=graphed["rollout_fps"] / op_by_op["rollout_fps"],
+                 card=nvidia_smi())
     emit(phase="route_time", dtype="bf16", **route)
-    emit(phase="step_breakdown", **breakdown(kernels, 20))
+    emit(phase="step_breakdown", graphed=breakdown(graphed_kernels, 20),
+         eager=breakdown(eager_kernels, 20))
     return route
 
 
@@ -2086,12 +2197,13 @@ def distribution_metrics(root: str, eval_config: dict, pair: tuple) -> None:
 # Phase 13: the convergence soak on the breakout_fixed_row setting of
 # docs/CONVERGENCE.md (3 actions, 1-D direction latent, the square's row
 # pinned), at the tool's defaults (48x48 frames, hidden 32, batch 16, 6
-# frames, bf16), cut to 40 pretraining and 160 full-phase steps with an
-# evaluation every 100, in two runs of one root; its evaluation batches of
+# frames, bf16), cut to 20 pretraining and 80 full-phase steps with an
+# evaluation every 50, in two runs of one root; its evaluation batches of
 # 8 x 6 frames, 8 per pass.
-SOAK_ARGS = ["--actions", "3", "--action-space-dimension", "1", "--fixed-y", "--steps", "200",
-             "--pretraining-steps", "40", "--eval-every", "100", "--no-example-images"]
-SOAK_FIRST_STOP = 100
+SOAK_STEPS, SOAK_FIRST_STOP = 100, 50
+SOAK_ARGS = ["--actions", "3", "--action-space-dimension", "1", "--fixed-y",
+             "--steps", str(SOAK_STEPS), "--pretraining-steps", "20",
+             "--eval-every", str(SOAK_FIRST_STOP), "--no-example-images"]
 SOAK_FRAMES, SOAK_EVAL_BATCH, SOAK_EVAL_BATCHES = 6, 8, 8
 # Phase 14: the Faster R-CNN detector on tennis-shaped frames (96x256, as
 # configs/03_tennis.yaml's videos), one 16-frame sequence at the default
@@ -2207,13 +2319,13 @@ def soak_run(argv: list) -> tuple:
 
 def convergence_soak_phase(root: str, gen) -> dict:
     """Phase 13: ``tools.convergence_soak`` in bf16 at SOAK_ARGS, run twice
-    in one root (stopped at step 100, then resumed to 200): every logged
+    in one root (stopped at step 50, then resumed to 100): every logged
     loss finite, ``eval_curve.jsonl`` and ``summary.json`` written, the
     second run's first step the first run's last plus one; K1 and K2 3(T-1)
     times per train step and K3 never, K1 3(T-1) and K3 once per frozen
     BatchNorm + LeakyReLU per evaluation batch; K1, K2 and K3 bit for bit
     at every shape the soak gave them.  The accuracy target is not
-    required: 200 steps are too few.  Returns the launch counts."""
+    required: 100 steps are too few.  Returns the launch counts."""
     soak_root = os.path.join(root, "soak")
     argv = ["--root", soak_root, *SOAK_ARGS]
     with LoopRecorder() as recorder, KernelShapes() as kernel_shapes:
@@ -2233,7 +2345,7 @@ def convergence_soak_phase(root: str, gen) -> dict:
     require(second_code in (None, 1) and f"[soak] resumed at step {SOAK_FIRST_STOP}" in second,
             (second_code, second[-2000:]))
     steps = [r["step"] for r in recorder.steps]
-    require(steps == list(range(1, 201)) and steps[first_steps] == steps[first_steps - 1] + 1,
+    require(steps == list(range(1, SOAK_STEPS + 1)) and steps[first_steps] == steps[first_steps - 1] + 1,
             f"soak steps {steps[:3]}...{steps[-3:]}, the second run from {steps[first_steps]}")
 
     want_step = {"convlstm_gates": 3 * (SOAK_FRAMES - 1),
@@ -2258,12 +2370,12 @@ def convergence_soak_phase(root: str, gen) -> dict:
     require(losses and all(np.isfinite(v) for _, _, v in losses),
             [x for x in losses if not np.isfinite(x[2])][:5])
     curve = convergence_soak.read_eval_curve(os.path.join(soak_root, "eval_curve.jsonl"))
-    require([r["step"] for r in curve] == [100, 200] and all(
+    require([r["step"] for r in curve] == [SOAK_FIRST_STOP, SOAK_STEPS] and all(
         np.isfinite(r[k]) for r in curve for k in ("observations_loss", "actions_accuracy",
                                                    "one_hot_actions_accuracy")), curve)
     with open(os.path.join(soak_root, "artifacts", "summary.json")) as f:
         summary = json.load(f)
-    require(summary["steps"] == 200 and summary["target_met"] == (second_code is None), summary)
+    require(summary["steps"] == SOAK_STEPS and summary["target_met"] == (second_code is None), summary)
 
     errors = check_kernels_at(kernel_shapes.shapes, gen)
     kernels_per_step = time_soak_kernels(kernel_shapes.shapes, gen)
@@ -2271,7 +2383,7 @@ def convergence_soak_phase(root: str, gen) -> dict:
     step_ms = [r["seconds"] * 1e3 for r in recorder.steps
                if r["step"] not in (1, SOAK_FIRST_STOP + 1)]
     pass_s = [p["seconds"] for p in recorder.passes]
-    emit(phase="convergence_soak", dtype="bf16", steps=200, seconds=seconds,
+    emit(phase="convergence_soak", dtype="bf16", steps=SOAK_STEPS, seconds=seconds,
          train_step_ms_median=statistics.median(step_ms), train_step_ms_min=min(step_ms),
          train_step_ms_max=max(step_ms),
          evaluation_ms=[1e3 * (a + b) for a, b in zip(pass_s[::2], pass_s[1::2])],
@@ -3082,6 +3194,195 @@ def tools_phase(root: str, loop_step_ms: float) -> dict:
     return launches
 
 
+# Phase 18, the graphed routes on the bf16 flagship at BAIR's full width:
+# the play session against EagerPlay from one state, noise off and on
+# (GRAPHED_STEPS steps, a uint8 step, an interpolation step, a rollout of
+# ROLLOUT_FRAMES), a weight load mid-session; the builder over 2 batches of
+# 8 x 30 and a ragged one of GRAPHED_RAGGED, graphed against eager.
+GRAPHED_STEPS = 3
+GRAPHED_RAGGED = 4
+# Test videos of TEST_VIDEO_FRAMES give two 30-frame sequences each.
+GRAPHED_TEST_VIDEOS = (BUILDER_BATCHES * LOOP_BATCH + GRAPHED_RAGGED) // 2
+
+
+def require_equal(got, want, what: str) -> None:
+    got, want = np.asarray(got), np.asarray(want)
+    require(got.shape == want.shape and np.array_equal(got, want),
+            f"{what}: the graphed route differs from the eager one "
+            f"({got.shape} vs {want.shape}, max |d| "
+            f"{np.abs(got.astype(np.float64) - want).max() if got.shape == want.shape else None})")
+
+
+def graphed_play(model, obs: np.ndarray, actions: np.ndarray, noise: bool,
+                 reload_state=None) -> dict:
+    """Phase 18a: a graphed session against EagerPlay bit for bit; the
+    session's launches (3 K1 and 15 K3 per step under replay) and its
+    rollout's synchronisations (one); with ``reload_state``, those weights
+    loaded in place mid-session and the next step against EagerPlay."""
+    eager = EagerPlay(model, obs, noise=noise)
+    want = [eager.step(int(a)).float().cpu().numpy() for a in actions[:GRAPHED_STEPS]]
+    want.append(to_uint8(eager.step(int(actions[GRAPHED_STEPS]))).cpu().numpy())
+    want.append(eager.interpolation(0, 3, 0.7).float().cpu().numpy())
+    want_rollout = eager.rollout(actions[:ROLLOUT_FRAMES])
+
+    session = PlaySession(model, noise=noise, seed=SEED)
+    reset_launches()
+    session.start(obs)
+    got = [session.generate_next(int(a)) for a in actions[:GRAPHED_STEPS]]
+    got.append(session.generate_next_u8(int(actions[GRAPHED_STEPS])))
+    got.append(session.generate_next_interpolation(0, 3, 0.7))
+    with counted_syncs() as syncs:
+        rollout = session.rollout(actions[:ROLLOUT_FRAMES])
+    launches = read_launches()
+    steps = GRAPHED_STEPS + 2 + ROLLOUT_FRAMES
+    require(launches == per_frame_launches(steps), f"{steps} graphed steps launched {launches}")
+    require(len(syncs) == 1, f"the graphed rollout synchronised {len(syncs)} times: {syncs}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        require_equal(g, w, f"step {i}")
+    require_equal(rollout, want_rollout, "the rollout")
+    require(rollout.std() > 0, "constant rollout")
+    record = dict(noise=noise, steps=steps, launches=launches, rollout_syncs=len(syncs),
+                  bit_exact=True)
+
+    # A frame handed out with block=False is a copy that later steps leave.
+    frame = session.generate_next_u8(1, block=False)
+    eager.step(1)
+    kept = frame.cpu().numpy()
+    for a in (2, 3):
+        session.generate_next_u8(a)
+        eager.step(a)
+    require_equal(frame.cpu().numpy(), kept, "a block=False frame after two steps")
+
+    if reload_state is not None:
+        step = session._programs["step"]
+        captures = step.captures
+        model.load_state_dict(reload_state)
+        require_equal(session.generate_next(4), eager.step(4).float().cpu().numpy(),
+                      "the step after a weight load")
+        require(step.captures == captures + 1, "the weight load was not seen")
+        record["reload_seen"] = True
+    emit(phase="graphed_play", **record)
+    return launches
+
+
+class EagerBuilder(EvaluationDatasetBuilder):
+    """The builder with its forward run op by op, as it ran before its
+    forwards became graph replays."""
+
+    def _forward(self, observations, actions, generator):
+        return self._eager_forward(observations, actions, generator)
+
+
+def timed_build(builder) -> tuple:
+    """(videos, seconds, peak GiB, launches of each batch's forward)."""
+    forwards, forward = [], builder._forward
+
+    def recorded_forward(*args):
+        before = read_launches()
+        out = forward(*args)
+        forwards.append(launches_since(before))
+        return out
+
+    builder._forward = recorded_forward
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    videos = builder.build_videos()
+    seconds = time.perf_counter() - start
+    del builder._forward
+    return videos, seconds, torch.cuda.max_memory_allocated() / 2 ** 30, forwards
+
+
+def require_same_videos(got: list, want: list) -> None:
+    require(len(got) == len(want), (len(got), len(want)))
+    for index, (g, w) in enumerate(zip(got, want)):
+        for i in range(w.get_frames_count()):
+            require_equal(g.get_frame_at(i), w.get_frame_at(i), f"video {index} frame {i}")
+        require(g.metadata == w.metadata, f"video {index}'s metadata differs")
+
+
+def graphed_builder(config: dict, model) -> dict:
+    """Phase 18b: the builder graphed (twice: capture, then replays only)
+    against eager over 2 batches of 8 x 30 and a ragged batch, bit for
+    bit, frames and metadata (``inferred_action``, ``encoded_action``);
+    87 K1 and 446 K3 per batch under replay; seconds per batch both ways,
+    peak memory with the graph pools."""
+    width, height = config["model"]["representation_network"]["target_input_size"]
+    videos = [make_moving_square_video(TEST_VIDEO_FRAMES, height, width, square=height // 8,
+                                       actions_count=config["data"]["actions_count"],
+                                       seed=SEED + 200 + i, step_pixels=height // 20)
+              for i in range(GRAPHED_TEST_VIDEOS)]
+    test = VideoDataset.from_videos(videos, config["evaluation"]["batching"],
+                                    get_final_transforms(config)["test"])
+    batches = -(-len(test) // LOOP_BATCH)
+    require(len(test) == BUILDER_BATCHES * LOOP_BATCH + GRAPHED_RAGGED, len(test))
+    eager_videos, eager_s, eager_gib, _ = timed_build(
+        EagerBuilder(config, model, test, Logger()))
+    builder = EvaluationDatasetBuilder(config, model, test, Logger())
+    reset_launches()
+    first, first_s, first_gib, forwards = timed_build(builder)
+    want = {"convlstm_gates": EVAL_GATE_LAUNCHES, "convlstm_gates_bwd": 0,
+            "fused_norm_act": len(EVAL_NORM_SHAPES)}
+    require(len(forwards) == batches and all(f == want for f in forwards),
+            f"graphed builder batches launched {forwards}")
+    launches = read_launches()
+    again, again_s, again_gib, _ = timed_build(builder)
+    captures = {str(key): p.captures for key, p in builder._programs.items()}
+    require(sorted(builder._programs) == [(GRAPHED_RAGGED, EVAL_FRAMES),
+                                          (LOOP_BATCH, EVAL_FRAMES)]
+            and set(captures.values()) == {1}, f"the builder's programs: {captures}")
+    require_same_videos(first, eager_videos)
+    require_same_videos(again, eager_videos)
+    # One full batch's forward under the profiler, both ways.
+    batch = collate([test[i] for i in range(LOOP_BATCH)])
+    observations = sequence_to_nchw(batch.observations, "cuda")
+    actions = torch.as_tensor(batch.actions, device="cuda")
+    batch_forward = {}
+    for way, forward in (("graphed", builder._forward), ("eager", builder._eager_forward)):
+        call = functools.partial(forward, observations, actions, builder.generator)
+        forward_ms = statistics.median(synchronised_ms(lambda _: call(), 5, warm=1))
+        kernels, _ = profile_steps(call, 2)
+        busy_ms = sum(k[1] for k in kernels)
+        batch_forward[way] = dict(ms=forward_ms, device_busy_ms=busy_ms,
+                                  idle_share=1 - busy_ms / forward_ms,
+                                  kernels=sum(k[2] for k in kernels))
+    record = dict(batches=batches, batch=LOOP_BATCH, ragged=GRAPHED_RAGGED, frames=EVAL_FRAMES,
+                  launches_per_batch=forwards[0], bit_exact=True, programs=captures,
+                  eager_s_per_batch=eager_s / batches,
+                  graphed_first_s_per_batch=first_s / batches,
+                  graphed_s_per_batch=again_s / batches,
+                  speedup=eager_s / again_s,
+                  batch_forward=batch_forward,
+                  eager_peak_gib=eager_gib,
+                  graphed_first_peak_gib=first_gib, graphed_peak_gib=again_gib,
+                  card=nvidia_smi())
+    emit(phase="graphed_builder", **record)
+    return launches
+
+
+def graphed_routes_phase(root: str, route: dict) -> dict:
+    """Phase 18 on BAIR's model config with seeded weights; ``route`` is
+    phase 6's timing of the play route both ways, printed beside the
+    builder's.  Returns the launches of its graphed runs."""
+    config = loop_config(root)
+    model = make_model(config, "cuda", SEED)
+    rng = np.random.default_rng(SEED + 18)
+    obs = rng.uniform(-1, 1, (256, 256, 3)).astype(np.float32)
+    actions = rng.integers(0, config["data"]["actions_count"], ROLLOUT_FRAMES)
+    totals = dict.fromkeys(KERNELS, 0)
+    add_launches(totals, graphed_play(model, obs, actions, noise=True))
+    reload_state = make_model(config, "cuda", SEED + 18).state_dict()
+    add_launches(totals, graphed_play(model, obs, actions, noise=False,
+                                      reload_state=reload_state))
+    add_launches(totals, graphed_builder(config, model))
+    emit(phase="graphed_routes", launches=totals,
+         play={way: {k: route[way][k] for k in ("play_step_ms", "play_step_p90_ms",
+                                                 "interactive_u8_ms", "rollout_fps",
+                                                 "kernels_per_step", "device_idle_share")}
+               for way in ("graphed", "eager")})
+    return totals
+
+
 KERNEL_NAME = re.compile(r"\d+([a-z_]+?_kernel)I(13__nv_bfloat16|f)(?:Li(\d+)E)?")
 PTXAS_KERNEL = re.compile(r"(?:Compiling entry function '|Function properties for )([\w$]+)")
 PTXAS_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
@@ -3187,7 +3488,7 @@ def main() -> None:
 
     sums = time_kernels(gen)
     time_loop_kernels(gen)
-    time_route(model, obs, actions)
+    route = time_route(model, obs, actions)
     del model
 
     trainer = flagship_trainer()
@@ -3209,6 +3510,7 @@ def main() -> None:
         parallel_launches, phase15 = data_parallel_phase(root)
         tensor_parallel_launches = tensor_parallel_phase(root, phase15)
         tools_launches = tools_phase(root, loop_step_ms)
+        graphed_launches = graphed_routes_phase(root, route)
 
     kernels = [dict(name=name, route="cuda",
                     source=f"playablevideogeneration_tpu_torch/ops/cuda/csrc/{source}.cu",
@@ -3216,7 +3518,7 @@ def main() -> None:
                     launches=(play_launches[name] + train_launches[name] + loop_launches[name]
                               + after_launches[name] + soak_launches[name]
                               + parallel_launches[name] + tensor_parallel_launches[name]
-                              + tools_launches[name]),
+                              + tools_launches[name] + graphed_launches[name]),
                     max_abs_err=errors[name], ms=sums[name]["ms"],
                     cold_ms=sums[name]["cold_ms"],
                     plain_ms=sums[name]["plain_ms"], bound_ms=sums[name]["bound_ms"],

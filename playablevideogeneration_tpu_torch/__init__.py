@@ -17,7 +17,9 @@ data acquisition
 CLIs (``data.acquisition``); and what comes after
 training: the play and interpolate CLIs, the import of the reference's
 ``.pth.tar`` checkpoints, and the offline evaluation (``cli.build_evaluation_dataset``,
-``cli.evaluate_dataset``).  Three hand-written CUDA
+``cli.evaluate_dataset``).  On the card the play session and the
+evaluation-dataset builder replay captured CUDA graphs
+(``inference.graphs``), as the JAX package jits them.  Three hand-written CUDA
 kernels for ``sm_90a`` under ``ops/cuda`` carry them: the ConvLSTM gate
 update, forward and backward, and the frozen-BatchNorm + LeakyReLU
 epilogue.

@@ -13,11 +13,18 @@ input of the offline evaluation.
 
 ``build_videos`` keeps the videos in memory; ``build`` writes them in the
 on-disk video format, which needs Pillow.
+
+On a CUDA device the forward is a captured program (``inference.graphs``)
+per batch shape (B, T), as the JAX builder keeps one ``jax.jit`` per
+shape: the last, ragged batch gets its own.  The generator is registered
+with each graph, so the replays draw the eager forward's noise; the
+forward's outputs are copied out of the graph's static buffers.  On the
+CPU the forward runs eagerly.
 """
 from __future__ import annotations
 
 import os
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +37,7 @@ from playablevideogeneration_tpu_torch.evaluation.action_sampler import (
     zero_action_variation_sampler,
 )
 from playablevideogeneration_tpu_torch.evaluation.evaluator import eval_mode, evaluation_forward
+from playablevideogeneration_tpu_torch.inference import graphs
 from playablevideogeneration_tpu_torch.models.caddy import Caddy
 from playablevideogeneration_tpu_torch.models.outputs import ModelOutput
 from playablevideogeneration_tpu_torch.utils.logging import Logger
@@ -38,11 +46,12 @@ from playablevideogeneration_tpu_torch.utils.tensor_ops import sequence_to_nchw
 
 class EvaluationDatasetBuilder:
     """Noise (the action networks' sampled directions, recorded as
-    ``encoded_action``) comes from a generator on the model's device seeded
-    with 0 at each build."""
+    ``encoded_action``) comes from the builder's generator on the model's
+    device, seeded with 0 at each build.  ``backend`` is for the CPU tests
+    only (``graphs.StandIn``); by default the device decides."""
 
     def __init__(self, config: dict, model: Caddy, dataset, logger: Logger,
-                 logger_prefix: str = "test"):
+                 logger_prefix: str = "test", backend: Optional[type] = None):
         self.config = config
         self.model = model
         self.dataset = dataset
@@ -55,12 +64,33 @@ class EvaluationDatasetBuilder:
         self.ground_truth_observations_init = \
             config["evaluation_dataset"]["ground_truth_observations_init"]
         self.temperature = config["training"]["gumbel_temperature_end"]
+        self.generator = torch.Generator(device=self.device)
+        self._backend = graphs.backend_for(self.device) if backend is None else backend
+        # (B, T) -> graphs.Program
+        self._programs = {}
 
-    def _forward(self, observations: torch.Tensor, actions: torch.Tensor,
-                 generator: torch.Generator) -> ModelOutput:
+    def _eager_forward(self, observations: torch.Tensor, actions: torch.Tensor,
+                       generator: torch.Generator) -> ModelOutput:
         return evaluation_forward(self.model, observations, actions, generator,
                                   self.ground_truth_observations_init, self.temperature,
                                   one_hot_action_sampler, zero_action_variation_sampler)
+
+    def _forward(self, observations: torch.Tensor, actions: torch.Tensor,
+                 generator: torch.Generator) -> ModelOutput:
+        """The forward of one batch, on a model in evaluation mode: eager on
+        the CPU, else a replay of the program of its (B, T), captured again
+        for another model or generator."""
+        if self._backend is None:
+            return self._eager_forward(observations, actions, generator)
+        key = tuple(observations.shape[:2])
+        program = self._programs.get(key)
+        if (program is None or program.model is not self.model
+                or program.generators[0] is not generator):
+            program = self._programs[key] = graphs.Program(
+                lambda obs, acts: ((), self._eager_forward(obs, acts, generator)), (),
+                [observations.clone(), actions.clone()], self.model, self._backend,
+                generators=(generator,))
+        return graphs.copied(program(observations, actions))
 
     def reconstruct(self, batch: Batch, generator: torch.Generator
                     ) -> Tuple[torch.Tensor, ModelOutput]:
@@ -82,7 +112,7 @@ class EvaluationDatasetBuilder:
         """Every test sequence's reconstruction as an in-memory ``Video``;
         the model's previous mode is restored afterwards."""
         videos: List[Video] = []
-        generator = torch.Generator(device=self.device).manual_seed(0)
+        generator = self.generator.manual_seed(0)
         with eval_mode(self.model):
             for batch in self.dataloader:
                 frames, out = self.reconstruct(batch, generator)

@@ -192,6 +192,6 @@ def test_chip_smoke_soak_is_the_breakout_fixed_row_setting_cut_in_steps(tmp_path
                         "no_example_images"):
             assert getattr(smoke, name) == value, name
     assert smoke.compute_dtype == "bfloat16" and smoke.fixed_y and smoke.actions == 3
-    assert (smoke.steps, smoke.pretraining_steps, smoke.eval_every) == (200, 40, 100)
+    assert (smoke.steps, smoke.pretraining_steps, smoke.eval_every) == (100, 20, 50)
     assert smoke.no_example_images and smoke.device == "cuda"
     assert chip_smoke.SOAK_FIRST_STOP % smoke.eval_every == 0
