@@ -2,8 +2,8 @@
 loop, the entry points after training, the distribution metrics, the
 convergence soak, the Faster R-CNN detector, data- and tensor-parallel
 training, the tools (the step profiler, the input-pipeline bench and the
-CLI soak) and the graphed inference routes against eager ones, on one
-NVIDIA Hopper GPU.
+CLI soak), the graphed inference routes and the graphed training step and
+evaluation batch against eager ones, on one NVIDIA Hopper GPU.
 
 Run from the repository root on a machine with an H100:
 
@@ -58,22 +58,25 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    share (a graph's kernels reach the profiler as kernels, without the
    operators that launched them at capture);
 7. train route: the bf16 flagship trainer (batch 16, 12 frames, smooth MI,
-   per-step activation checkpointing, seeded weights and batch) takes one
+   per-step activation checkpointing, seeded weights and batch), each step
+   a replay of a captured CUDA graph (``graphs.TrainProgram``), takes one
    pretraining and three full-phase steps; each must give a finite loss and
    finite gradient norms and launch K1 66 times (33 forward, 33 in the
-   checkpoint recompute), K2 33 times and K3 never; the parameters must
-   change;
+   checkpoint recompute), K2 33 times and K3 never, one capture per
+   (phase, ground-truth frames); the parameters must change;
 8. train parity: one full-phase step in f32 with TF32 off, at full width on
    a short batch (2 x 4 frames, 2 ground-truth frames), through the kernels
    on the card and the plain versions on the CPU, with the same weights and
-   the same noise (drawn from one CPU generator): the loss and every term
+   the same noise (drawn from one CPU generator, so the card's step runs op
+   by op: a graph cannot replay a host generator): the loss and every term
    within rtol 1e-3, the per-subnetwork gradient norms within rtol 1e-2;
 9. train timings: K1's and K2's device time per launch at the training
    shapes, warm and cold, beside their bounds and plain versions' times,
    the median bf16 train step, ``train_frames_per_sec`` (B*T per step),
    peak device memory, and the device's busy and idle share and
    kernel-time breakdown over two profiled steps (the port's kernels listed
-   one by one);
+   one by one), both ways: phase 7's graphed trainer and one op by op
+   (``graphs.Eager``) from the same seed;
 10. train loop: BAIR's config (``BAIR_CONFIG``, pinned to
    configs/01_bair.yaml by a CPU test, with ``LOOP_OVERRIDES``) through
    ``cli.train.train`` on in-memory synthetic videos at 256x256 (the card's
@@ -84,7 +87,8 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    converted weights (``vgg19.npz``, seeded apart from the fallbacks) into
    ``tpu.pretrained_weights_dir``: the run's trainer must load it bit for
    bit, computing in bf16, and a run's two evaluators must share it in
-   f32.  Every train step must give finite values, the
+   f32.  The train steps and the evaluation batches are graph replays.
+   Every train step must give finite values, the
    schedules' values at its step, and launch K1 and K2 3(T-1)
    times each and K3 never (steps after an evaluation included); every
    evaluation batch K1 87 and K3 446 times and K2 never; one-hot samples
@@ -139,7 +143,8 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    direction latent, the square's row pinned; 48x48 frames, hidden 32,
    batch 16, 6 frames, in-memory videos) cut to 20 pretraining and 80
    full-phase steps with an evaluation every 50 and no example images,
-   run twice in one root (``--stop-at 50``, then resumed to 100): every
+   run twice in one root (``--stop-at 50``, then resumed to 100), its
+   steps and evaluation batches graph replays: every
    logged loss finite, ``eval_curve.jsonl`` and ``summary.json`` written,
    the second run starting at step 51; K1 and K2 15 times per train step
    and K3 never, K1 15 and K3 86 times per evaluation batch of 8 x 6
@@ -196,7 +201,8 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    per rank (median and range of steps 2-4), one step's collectives
    replayed alone and their share of the step, and peak memory per rank.
 17. tools: ``tools.profile_step`` at its defaults (the bf16 flagship
-   trainer at batch 8, 12 frames) but one profiled step after a warm one:
+   trainer at batch 8, 12 frames, op by op: its scopes are module hooks,
+   which a replay does not fire) but one profiled step after a warm one:
    K1 66 and K2 33 per profiled step in the trace, the by-group and by-scope
    tables within 1 % of the profiler's own CUDA time, the unattributed
    share, the trace's bytes and parse seconds; ``tools.bench_input_pipeline``
@@ -221,12 +227,29 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    446 K3 per batch, one program per batch shape; seconds per batch both
    ways, the device's busy time per batch, peak memory with the graph
    pools; beside phase 6's play times both ways.
+19. graphed training: the flagship trainer of phase 7 graphed and op by op
+   (``graphs.Eager``), each from the same seeded state: one pretraining and
+   two full-phase steps (the Gumbel temperature new at each; the third
+   replays the second's graph) under ``torch.use_deterministic_algorithms``
+   with phase 15's cuBLAS setting, the metrics and the whole state
+   (parameters, buffers, Adam's moments, MI matrix, schedule) bit for bit
+   after every step, K1 66 and K2 33 per step both ways; an evaluation
+   batch (BAIR's config, 8 x 30) and a ``PlaySession`` step captured on the
+   graphed trainer's model before its steps and run after them, each bit
+   for bit with a fresh model loaded from ``trainer.state.state_dict()``
+   and each captured again; then both ways past a capture step, the median
+   of 5 steps, frames/s, kernels per step, device busy time, idle share and
+   peak memory (with the capture's and the deterministic steps'), beside
+   phase 9's; one 8 x 30 evaluation batch through ``Evaluator.evaluate``
+   graphed and op by op: the metrics bit for bit, 87 K1 + 446 K3 per batch,
+   seconds per batch (the first graphed one with its capture), device busy
+   time and idle share.
 
 It prints JSON lines as it goes, then the kernels' summary line (``ms``,
 ``cold_ms``, ``plain_ms`` and ``bound_ms`` there are per step of the
 kernel's route: the sum over a bf16 play step's launches for K1 and K3,
 over a bf16 training step's 33 K2 launches for K2; ``launches`` counts
-phase 4's, 7's, 10's, 11's, 13's, 15's, 16's, 17's and 18's runs in this process,
+phase 4's, 7's, 10's, 11's, 13's, 15's, 16's, 17's, 18's and 19's runs in this process,
 without the f32 parity checks and the soak's stage processes), the card's
 nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
@@ -285,7 +308,11 @@ from playablevideogeneration_tpu_torch.evaluation.dataset_evaluator import (
 from playablevideogeneration_tpu_torch.evaluation.action_sampler import (
     zero_action_variation_sampler,
 )
-from playablevideogeneration_tpu_torch.evaluation.evaluator import Evaluator, evaluation_forward
+from playablevideogeneration_tpu_torch.evaluation.evaluator import (
+    Evaluator,
+    eval_mode,
+    evaluation_forward,
+)
 from playablevideogeneration_tpu_torch.evaluation.metrics import frcnn
 from playablevideogeneration_tpu_torch.evaluation.metrics.detection import make_detector
 from playablevideogeneration_tpu_torch.evaluation.metrics.frcnn import random_frcnn_variables
@@ -307,6 +334,7 @@ from playablevideogeneration_tpu_torch.evaluation.metrics.lpips import (
     load_lpips_linear_weights,
     make_lpips_fn,
 )
+from playablevideogeneration_tpu_torch.inference import graphs
 from playablevideogeneration_tpu_torch.inference.play_session import PlaySession
 from playablevideogeneration_tpu_torch.models.caddy import flagship_model, make_model
 from playablevideogeneration_tpu_torch.models import layers
@@ -1036,11 +1064,13 @@ def read_launches() -> dict:
             "fused_norm_act": fused_batch_norm_leaky_relu.launches}
 
 
-def flagship_trainer() -> Trainer:
+def flagship_trainer(backend=None) -> Trainer:
+    """The bf16 flagship trainer at batch 16 x 12 frames; ``backend`` is the
+    trainer's seam (``graphs.Eager`` for the op-by-op step)."""
     return build_synthetic_trainer(
         height=256, width=256, batch_size=TRAIN_BATCH, observations_count=TRAIN_FRAMES,
         compute_dtype="bfloat16", remat=True, smooth_mi=True, pretraining_steps=1,
-        device="cuda", seed=SEED)
+        device="cuda", seed=SEED, backend=backend)
 
 
 def device_batch(batch):
@@ -1058,6 +1088,7 @@ def train_route(trainer: Trainer, batch) -> dict:
     expected = {"convlstm_gates": 6 * DYNAMICS_STEPS, "convlstm_gates_bwd": 3 * DYNAMICS_STEPS,
                 "fused_norm_act": 0}
     totals = dict.fromkeys(expected, 0)
+    keys = set()
     for step in range(4):
         reset_launches()
         metrics = trainer.train_step(batch)
@@ -1071,13 +1102,17 @@ def train_route(trainer: Trainer, batch) -> dict:
         require(np.isfinite(metrics["loss"]) and all(np.isfinite(v) for v in norms.values()),
                 f"step {step + 1}: loss {metrics['loss']}, norms {norms}")
         require(norms["grad_norm/global"] > 0, norms)
+        keys.add((metrics["pretraining"], metrics["ground_truth_observations"]))
+        require(trainer.captures == len(keys),
+                f"step {step + 1}: {trainer.captures} captures for {len(keys)} keys")
         emit(phase="train_step", step=step + 1, pretraining=bool(metrics["pretraining"]),
              loss=metrics["loss"], ground_truth_observations=metrics["ground_truth_observations"],
              gumbel_temperature=metrics["gumbel_temperature"], launches=launches, **norms)
     after = by_module()
     changed = {name: float((after[name] - before[name]).abs().max()) for name in before}
     require(all(v > 0 for v in changed.values()), f"parameters unchanged: {changed}")
-    emit(phase="train_route", steps=4, launches=totals, max_parameter_change=changed)
+    emit(phase="train_route", steps=4, launches=totals, max_parameter_change=changed,
+         graphed=True, captures=trainer.captures)
     return totals
 
 
@@ -1100,9 +1135,11 @@ def train_parity() -> dict:
                                  seed=SEED)
     results = {}
     for device in ("cuda", "cpu"):
+        # Op by op on the card too: both draw their noise from a CPU
+        # generator, which a CUDA graph cannot replay.
         trainer = Trainer(config, flagship_model(device, torch.float32, SEED,
                                                  checkpoint_steps=True),
-                          smooth_mi=True, seed=SEED)
+                          smooth_mi=True, seed=SEED, backend=graphs.Eager)
         trainer.init_state()
         trainer.generator = torch.Generator().manual_seed(SEED)
         reset_launches()
@@ -1158,9 +1195,12 @@ def time_gate_kernels_in_training(gen) -> dict:
     return total["convlstm_gates_bwd"]
 
 
-def time_train(trainer: Trainer, batch) -> dict:
+def time_train(trainer: Trainer, batch, way: str) -> dict:
     """Phase 9b: median full-phase train step, frames per second, peak
-    memory, and the device's busy share over two profiled steps."""
+    memory, and the device's busy share over two profiled steps, ``way``
+    naming the trainer's route (``graphed`` or ``eager``).  A graphed step
+    allocates nothing: its peak is what lives beside the graph's pool, the
+    pool being allocated when it was captured."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1192,8 +1232,25 @@ def time_train(trainer: Trainer, batch) -> dict:
                  step_device_busy_ms=busy_ms,
                  device_idle_share=None if busy_ms is None else 1 - busy_ms / train_step_ms,
                  kernels_per_step=sum(k[2] for k in kernels))
-    emit(phase="train_time", dtype="bf16", **route)
-    emit(phase="train_step_breakdown", **breakdown(kernels, 25))
+    emit(phase="train_time", dtype="bf16", way=way, **route)
+    emit(phase="train_step_breakdown", way=way, **breakdown(kernels, 25))
+    return route
+
+
+def time_train_both_ways(graphed: Trainer, batch) -> dict:
+    """Phase 9b both ways: ``graphed`` (phase 7's trainer, past its
+    captures), then the op-by-op trainer from the same seed past its
+    pretraining step, as phase 6 times the play route both ways."""
+    route = {"graphed": time_train(graphed, batch, "graphed")}
+    eager = flagship_trainer(graphs.Eager)
+    for _ in range(2):  # pretraining, then the first full-phase step
+        eager.train_step(batch)
+    route["eager"] = time_train(eager, batch, "eager")
+    del eager
+    emit(phase="train_time_both_ways", graphed_ms=route["graphed"]["train_step_ms"],
+         eager_ms=route["eager"]["train_step_ms"],
+         speedup=route["eager"]["train_step_ms"] / route["graphed"]["train_step_ms"],
+         card=nvidia_smi())
     return route
 
 
@@ -1221,13 +1278,15 @@ def launches_since(before: dict) -> dict:
 
 
 class LoopRecorder:
-    """Within the block, every ``Trainer.train_step``, evaluation forward
-    and evaluation pass is recorded: its kernel launches, wall time and
-    metrics, and for a step the schedules' values at its global step."""
+    """Within the block, every ``Trainer.train_step``, evaluation batch
+    (``Evaluator._batch``: the forward and the metrics, a replay on the
+    card) and evaluation pass is recorded: its kernel launches, wall time
+    and metrics, and for a step the schedules' values at its global
+    step."""
 
     def __enter__(self):
         self.steps, self.forwards, self.passes = [], [], []
-        self._saved = Trainer.train_step, Evaluator._forward, Evaluator.evaluate
+        self._saved = Trainer.train_step, Evaluator._batch, Evaluator.evaluate
         train_step, forward, evaluate = self._saved
         steps, forwards, passes = self.steps, self.forwards, self.passes
 
@@ -1244,9 +1303,9 @@ class LoopRecorder:
                     trainer.get_ground_truth_observations_count(), length - 1))))
             return metrics
 
-        def recorded_forward(evaluator, observations, actions, generator):
+        def recorded_forward(evaluator, observations, actions):
             before = read_launches()
-            out = forward(evaluator, observations, actions, generator)
+            out = forward(evaluator, observations, actions)
             forwards.append(dict(label=evaluator._sampler_label,
                                  frames=tuple(observations.shape[:2]),
                                  launches=launches_since(before)))
@@ -1261,12 +1320,12 @@ class LoopRecorder:
             return metrics
 
         Trainer.train_step = recorded_step
-        Evaluator._forward = recorded_forward
+        Evaluator._batch = recorded_forward
         Evaluator.evaluate = recorded_evaluate
         return self
 
     def __exit__(self, *exc_info):
-        Trainer.train_step, Evaluator._forward, Evaluator.evaluate = self._saved
+        Trainer.train_step, Evaluator._batch, Evaluator.evaluate = self._saved
 
 
 def state_snapshot(trainer: Trainer) -> dict:
@@ -1448,7 +1507,14 @@ def train_loop(root: str) -> tuple:
 
         # On the evaluated trainer: two loop steps under the profiler, then
         # bare train_steps on one of its batches, on the device and on the
-        # host as the loader gives it.
+        # host as the loader gives it.  The profiled steps replay a graph
+        # captured anew, in an unprofiled loop step: with PyTorch 2.11 and
+        # CUDA 12.8 the profiled launch of a graph captured before the run's
+        # evaluator and its graphs were freed crashed the process (a
+        # segmentation fault in CUDAGraph.replay), and one captured after
+        # that ran.
+        trainer.drop_program()
+        trainer.train_epoch(max_steps=trainer.global_step + 1)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             start = time.perf_counter()
             trainer.train_epoch(max_steps=trainer.global_step + 2)
@@ -3383,6 +3449,207 @@ def graphed_routes_phase(root: str, route: dict) -> dict:
     return totals
 
 
+# Phase 19, the graphed training step and evaluation batch: the flagship
+# trainer at batch 16 x 12 graphed and op by op from one seeded state, its
+# pretraining step and two full-phase steps (the Gumbel temperature new at
+# each, the third replaying the second's graph) under deterministic
+# algorithms with phase 15's cuBLAS setting; an evaluation batch and a play
+# step of the graphed trainer's model captured before its steps and run
+# again after them, against a fresh model loaded from its state; then one
+# 8 x 30 evaluation batch of BAIR's config both ways.
+GRAPHED_TRAIN_STEPS = 3
+EVAL_TIMED = 3
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms`` within the block, with the
+    cuBLAS workspace setting that phase 15 gives its ranks."""
+    saved = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if saved is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved
+
+
+def stale_weights_check(trainer: Trainer, evaluator: Evaluator, session: PlaySession,
+                        obs: np.ndarray, config: dict) -> tuple:
+    """Phase 19's check that what ran after graphed steps read the updated
+    weights and statistics: ``evaluator`` and ``session``, captured on the
+    trainer's model before its steps, against a fresh model loaded from
+    ``trainer.state.state_dict()``: one evaluation batch's metrics and one
+    play step bit for bit, each program captured again.  Returns the
+    record and the fresh model."""
+    fresh = make_model(trainer.config, "cuda", SEED + 19)
+    fresh.load_state_dict(trainer.state.state_dict()["model"])
+    got = evaluator.evaluate(1, save_images=False)
+    want = Evaluator(config, fresh, evaluator.dataset, Logger(),
+                     vgg=evaluator.vgg).evaluate(1, save_images=False)
+    require(got.keys() == want.keys() and all(got[k] == want[k] for k in want),
+            f"the evaluation after graphed training differs from a fresh model's: "
+            f"{[(k, got.get(k), v) for k, v in want.items() if got.get(k) != v][:5]}")
+    with eval_mode(trainer.model):
+        frame = session.start(obs).generate_next(2)
+    require_equal(frame, PlaySession(fresh).start(obs).generate_next(2),
+                  "the play step after graphed training against a fresh model's")
+    captures = dict(evaluation=[p.captures for p in evaluator._programs.values()],
+                    play=session._programs["step"].captures)
+    require(captures == dict(evaluation=[2], play=2),
+            f"the programs captured before training were not captured again: {captures}")
+    return dict(fresh_model_bit_exact=True, captures=captures), fresh
+
+
+def timed_evaluation(config: dict, model, dataset, vgg) -> dict:
+    """One 8 x 30 evaluation batch (``max_evaluation_batches`` 1) through
+    ``Evaluator.evaluate`` graphed and op by op: the metrics bit for bit,
+    seconds per batch (the first graphed one with its capture, then the
+    median of EVAL_TIMED), launches per batch, and one batch's device busy
+    time and kernels under the profiler."""
+    want_launches = {"convlstm_gates": EVAL_GATE_LAUNCHES, "convlstm_gates_bwd": 0,
+                     "fused_norm_act": len(EVAL_NORM_SHAPES)}
+    timed, launches = {}, dict.fromkeys(KERNELS, 0)
+    for way, backend in (("graphed", None), ("eager", graphs.Eager)):
+        evaluator = Evaluator(config, model, dataset, Logger(), vgg=vgg, backend=backend)
+
+        def evaluate():
+            return evaluator.evaluate(2, save_images=False)
+
+        torch.cuda.synchronize()
+        reset_launches()
+        start = time.perf_counter()
+        first = evaluate()
+        first_s = time.perf_counter() - start
+        seconds = []
+        for _ in range(EVAL_TIMED):
+            start = time.perf_counter()
+            require(evaluate() == first, f"{way}: an evaluation's metrics moved")
+            seconds.append(time.perf_counter() - start)
+        counted = read_launches()
+        require(counted == {k: v * (1 + EVAL_TIMED) for k, v in want_launches.items()},
+                f"{way} evaluation batches launched {counted}")
+        if way == "graphed":
+            add_launches(launches, counted)
+        kernels, wall_ms = profile_steps(evaluate, 2)
+        busy_ms = sum(k[1] for k in kernels)
+        timed[way] = dict(first_s=first_s, s_per_batch=statistics.median(seconds),
+                          s_per_batch_all=seconds, device_busy_ms=busy_ms,
+                          idle_share=1 - busy_ms / (statistics.median(seconds) * 1e3),
+                          kernels=sum(k[2] for k in kernels), profiled_wall_ms=wall_ms,
+                          metrics=first)
+    require(timed["graphed"]["metrics"] == timed["eager"]["metrics"],
+            "the graphed evaluation batch differs from the op-by-op one")
+    for record in timed.values():
+        del record["metrics"]
+    emit(phase="graphed_evaluation", batch=LOOP_BATCH, frames=EVAL_FRAMES, bit_exact=True,
+         launches_per_batch=want_launches, speedup=(timed["eager"]["s_per_batch"]
+                                                    / timed["graphed"]["s_per_batch"]),
+         card=nvidia_smi(), **timed)
+    return launches
+
+
+def graphed_training_phase(root: str, train_times: dict) -> dict:
+    """Phase 19; ``train_times`` is phase 9's timing both ways, printed
+    beside this phase's.  Returns the launches of its graphed runs."""
+    config = loop_config(root)
+    config["evaluation"]["max_evaluation_batches"] = 1
+    validation = loop_datasets(config)["validation"]
+    validation.set_observations_count(EVAL_FRAMES)
+    vgg = make_metric_vgg(None, "cuda")
+    batch = device_batch(make_synthetic_batch(
+        batch_size=TRAIN_BATCH, observations_count=TRAIN_FRAMES, height=256, width=256,
+        seed=SEED))
+    obs = np.random.default_rng(SEED + 19).uniform(
+        -1, 1, batch.observations.shape[2:]).astype(np.float32)
+    want_step = {"convlstm_gates": 6 * DYNAMICS_STEPS, "convlstm_gates_bwd": 3 * DYNAMICS_STEPS,
+                 "fused_norm_act": 0}
+    totals, graphed_steps, records = dict.fromkeys(KERNELS, 0), [], {}
+    for way, backend in (("graphed", None), ("eager", graphs.Eager)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = flagship_trainer(backend)
+        record = records[way] = {}
+        if way == "graphed":
+            # Captured before the steps, on the model they train.
+            evaluator = Evaluator(config, trainer.model, validation, Logger(), vgg=vgg)
+            reset_launches()
+            evaluator.evaluate(0, save_images=False)
+            session = PlaySession(trainer.model)
+            with eval_mode(trainer.model):
+                session.start(obs).generate_next(1)
+            add_launches(totals, read_launches())
+        step_metrics = []
+        with deterministic():
+            for step in range(GRAPHED_TRAIN_STEPS):
+                reset_launches()
+                metrics = trainer.train_step(batch)
+                torch.cuda.synchronize()
+                launches = read_launches()
+                require(launches == want_step, f"{way} step {step + 1} launched {launches}")
+                snapshot = state_snapshot(trainer)
+                step_metrics.append(metrics)
+                if way == "graphed":
+                    add_launches(totals, launches)
+                    graphed_steps.append((metrics, snapshot))
+                    continue
+                want_metrics, want_state = graphed_steps[step]
+                require(metrics.keys() == want_metrics.keys()
+                        and all(metrics[k] == want_metrics[k] for k in metrics),
+                        f"step {step + 1}: the graphed step's metrics differ from the eager "
+                        f"one's: {[(k, want_metrics[k], v) for k, v in metrics.items() if want_metrics[k] != v][:5]}")
+                require_same_state(want_state, snapshot)
+        record["deterministic_peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        record["steps"] = [dict(step=i + 1, pretraining=bool(m["pretraining"]),
+                                gumbel_temperature=m["gumbel_temperature"],
+                                ground_truth_observations=m["ground_truth_observations"],
+                                loss=m["loss"]) for i, m in enumerate(step_metrics)]
+        record["captures"] = trainer.captures
+        if way == "graphed":
+            require([s["pretraining"] for s in record["steps"]] == [True, False, False]
+                    and len({s["gumbel_temperature"] for s in record["steps"]}) == 3,
+                    record["steps"])
+            reset_launches()
+            stale, fresh = stale_weights_check(trainer, evaluator, session, obs, config)
+            add_launches(totals, read_launches())
+            record.update(stale)
+            del evaluator, session
+        # Past the deterministic steps: a step with the schedules' next key
+        # (captured on the graphed side), then the timed ones.
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        record["capture_step_peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        timing = time_train(trainer, batch, way)
+        if way == "graphed":
+            add_launches(totals, read_launches())
+        record.update({k: timing[k] for k in (
+            "train_step_ms", "train_step_ms_all", "train_frames_per_sec", "peak_memory_gib",
+            "step_device_busy_ms", "device_idle_share", "kernels_per_step")})
+        record["captures_after"] = trainer.captures
+        del trainer
+    emit(phase="graphed_training", batch=TRAIN_BATCH, frames=TRAIN_FRAMES,
+         deterministic_steps=GRAPHED_TRAIN_STEPS, bit_exact=True, launches_per_step=want_step,
+         speedup=records["eager"]["train_step_ms"] / records["graphed"]["train_step_ms"],
+         phase9=train_times and {way: {k: train_times[way][k] for k in (
+             "train_step_ms", "train_frames_per_sec", "device_idle_share", "kernels_per_step",
+             "peak_memory_gib")} for way in ("graphed", "eager")},
+         card=nvidia_smi(), **records)
+    gc.collect()
+    torch.cuda.empty_cache()
+    add_launches(totals, timed_evaluation(config, fresh, validation, vgg))
+    emit(phase="graphed_training_phase", launches=totals)
+    return totals
+
+
 KERNEL_NAME = re.compile(r"\d+([a-z_]+?_kernel)I(13__nv_bfloat16|f)(?:Li(\d+)E)?")
 PTXAS_KERNEL = re.compile(r"(?:Compiling entry function '|Function properties for )([\w$]+)")
 PTXAS_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
@@ -3498,7 +3765,7 @@ def main() -> None:
     train_launches = train_route(trainer, batch)
     train_parity()
     sums["convlstm_gates_bwd"] = time_gate_kernels_in_training(gen)
-    time_train(trainer, batch)
+    train_times = time_train_both_ways(trainer, batch)
     del trainer, batch
 
     with tempfile.TemporaryDirectory() as root:
@@ -3511,6 +3778,7 @@ def main() -> None:
         tensor_parallel_launches = tensor_parallel_phase(root, phase15)
         tools_launches = tools_phase(root, loop_step_ms)
         graphed_launches = graphed_routes_phase(root, route)
+        graphed_training_launches = graphed_training_phase(root, train_times)
 
     kernels = [dict(name=name, route="cuda",
                     source=f"playablevideogeneration_tpu_torch/ops/cuda/csrc/{source}.cu",
@@ -3518,7 +3786,8 @@ def main() -> None:
                     launches=(play_launches[name] + train_launches[name] + loop_launches[name]
                               + after_launches[name] + soak_launches[name]
                               + parallel_launches[name] + tensor_parallel_launches[name]
-                              + tools_launches[name] + graphed_launches[name]),
+                              + tools_launches[name] + graphed_launches[name]
+                              + graphed_training_launches[name]),
                     max_abs_err=errors[name], ms=sums[name]["ms"],
                     cold_ms=sums[name]["cold_ms"],
                     plain_ms=sums[name]["plain_ms"], bound_ms=sums[name]["bound_ms"],

@@ -155,8 +155,8 @@ def evaluate(validation, step: int, ground_truth_available: bool) -> None:
         validation.set_action_sampler(one_hot_action_sampler, label="one_hot")
         validation.evaluate(step, save_images=False)
         mapping = validation.get_best_action_mappings()
-        validation.set_action_sampler(make_ground_truth_action_sampler(mapping),
-                                      label="gt_actions")
+        validation.set_action_sampler(
+            make_ground_truth_action_sampler(mapping, validation.device), label="gt_actions")
         validation.evaluate(step, save_images=False)
 
 

@@ -11,6 +11,8 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from playablevideogeneration_tpu_torch.utils.device import DeviceLike
+
 
 def one_hot_action_sampler(log_probabilities: torch.Tensor,
                            ground_truth: torch.Tensor) -> torch.Tensor:
@@ -19,18 +21,22 @@ def one_hot_action_sampler(log_probabilities: torch.Tensor,
     return F.one_hot(indexes, log_probabilities.shape[-1]).to(log_probabilities.dtype)
 
 
-def make_ground_truth_action_sampler(ground_truth_to_actions_mapping: Dict[int, int]):
+def make_ground_truth_action_sampler(ground_truth_to_actions_mapping: Dict[int, int],
+                                     device: DeviceLike = "cpu"):
     """One-hot of each ground-truth action mapped through the Hungarian
     mapping (an unmapped action maps to itself, indices clamped to the
-    table)."""
+    table).  The table is made on ``device``, the model's, once: a captured
+    forward cannot copy it from the host."""
     size = max(ground_truth_to_actions_mapping.keys()) + 1
-    table = torch.tensor([ground_truth_to_actions_mapping.get(i, i) for i in range(size)])
+    table = torch.tensor([ground_truth_to_actions_mapping.get(i, i) for i in range(size)],
+                         device=device)
 
     def sampler(log_probabilities: torch.Tensor, ground_truth: torch.Tensor) -> torch.Tensor:
-        lookup = table.to(ground_truth.device)
+        lookup = table.to(ground_truth.device)  # no copy on the table's device
         translated = lookup[ground_truth.long().clamp(0, size - 1)]
         return F.one_hot(translated, log_probabilities.shape[-1]).to(log_probabilities.dtype)
 
+    sampler.table = table
     return sampler
 
 

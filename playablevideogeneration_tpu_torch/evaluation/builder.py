@@ -24,6 +24,7 @@ CPU the forward runs eagerly.
 from __future__ import annotations
 
 import os
+import weakref
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -65,7 +66,7 @@ class EvaluationDatasetBuilder:
             config["evaluation_dataset"]["ground_truth_observations_init"]
         self.temperature = config["training"]["gumbel_temperature_end"]
         self.generator = torch.Generator(device=self.device)
-        self._backend = graphs.backend_for(self.device) if backend is None else backend
+        self._backend = graphs.resolve_backend(self.device, backend)
         # (B, T) -> graphs.Program
         self._programs = {}
 
@@ -86,8 +87,9 @@ class EvaluationDatasetBuilder:
         program = self._programs.get(key)
         if (program is None or program.model is not self.model
                 or program.generators[0] is not generator):
+            builder = weakref.proxy(self)  # the program must not hold its owner
             program = self._programs[key] = graphs.Program(
-                lambda obs, acts: ((), self._eager_forward(obs, acts, generator)), (),
+                lambda obs, acts: ((), builder._eager_forward(obs, acts, generator)), (),
                 [observations.clone(), actions.clone()], self.model, self._backend,
                 generators=(generator,))
         return graphs.copied(program(observations, actions))

@@ -10,14 +10,24 @@ sampler (``cli/train.py``).  It writes a grid of example sequences.
 The forward runs with the model in evaluation mode (frozen BatchNorm
 statistics, through the fused norm kernel on the card; no centroid update)
 under ``torch.no_grad``; the model's previous mode is restored afterwards.
-The noise comes from a generator on the model's device seeded with
-``1234 + step``.
+The noise comes from the evaluator's generator on the model's device,
+seeded in place with ``1234 + step`` at each evaluation.
+
+On a CUDA device a batch's forward and its metrics (``_batch_metrics``)
+are one captured program (``inference.graphs``) per ``(action sampler,
+B, T)``, the counterpart of the JAX evaluator's ``jax.jit`` per
+``(action sampler, T)``, kept in a cache of ``PROGRAMS`` that evicts the
+least recently used, as the JAX evaluator's does; the generator is
+registered with each graph and the host reads the metrics after the
+replay.  On the CPU the batch runs eagerly.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
-from typing import Callable, Dict, Iterator, Optional
+import weakref
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +35,7 @@ import torch
 from playablevideogeneration_tpu_torch.data.loader import DataLoader
 from playablevideogeneration_tpu_torch.data.video import write_frame
 from playablevideogeneration_tpu_torch.evaluation.hungarian import compute_actions_accuracy
+from playablevideogeneration_tpu_torch.inference import graphs
 from playablevideogeneration_tpu_torch.models.caddy import ActionSampler, Caddy, VariationSampler
 from playablevideogeneration_tpu_torch.models.outputs import ModelOutput
 from playablevideogeneration_tpu_torch.models.vgg import Vgg19
@@ -40,6 +51,8 @@ GUMBEL_TEMPERATURE = 0.4
 _SCALARS = ("observations_loss/avg", "perceptual_loss/avg", "states_loss/avg", "entropy",
             "samples_entropy", "action_distribution_entropy", "action_directions_kl_loss",
             "action_mutual_information_loss")
+# The captured batches kept, as the JAX evaluator keeps its jitted forwards.
+PROGRAMS = 6
 
 
 def _nhwc(x: torch.Tensor) -> np.ndarray:
@@ -77,11 +90,14 @@ def evaluation_forward(model: Caddy, observations: torch.Tensor, actions: torch.
 class Evaluator:
     """:param vgg: the perceptual loss's VGG19; by default the config's
         converted weights, or seeded random ones when there are none, in
-        f32 (``utils.pretrained.make_metric_vgg``), as the JAX evaluator's"""
+        f32 (``utils.pretrained.make_metric_vgg``), as the JAX evaluator's
+    :param backend: for the tests and the chip check only:
+        ``graphs.StandIn`` or ``graphs.Eager``; by default the device
+        decides (``graphs.resolve_backend``)"""
 
     def __init__(self, config: dict, model: Caddy, dataset, logger: Logger,
                  action_sampler: Optional[ActionSampler] = None, logger_prefix: str = "test",
-                 vgg: Optional[Vgg19] = None):
+                 vgg: Optional[Vgg19] = None, backend: Optional[type] = None):
         self.config = config
         self.model = model
         self.dataset = dataset
@@ -98,6 +114,11 @@ class Evaluator:
         if vgg is None:
             vgg = make_metric_vgg(get_vgg_variables(config)[0], self.device)
         self.vgg = vgg
+        self.generator = torch.Generator(device=self.device)
+        self._backend = graphs.resolve_backend(self.device, backend)
+        # (action sampler, B, T) -> graphs.Program, the least recently used first
+        self._programs: "collections.OrderedDict[tuple, graphs.Program]" = \
+            collections.OrderedDict()
 
     def set_action_sampler(self, action_sampler: Optional[ActionSampler],
                            label: Optional[str] = None) -> None:
@@ -142,11 +163,39 @@ class Evaluator:
         return torch.cat([torch.stack([s.float() for s in scalars]), obs_terms, per_terms,
                           st_terms, out.selected_actions.reshape(-1).float()])
 
+    def _eager_batch(self, observations: torch.Tensor, actions: torch.Tensor
+                     ) -> Tuple[ModelOutput, torch.Tensor]:
+        out = self._forward(observations, actions, self.generator)
+        return out, self._batch_metrics(observations, out)
+
+    def _batch(self, observations: torch.Tensor, actions: torch.Tensor
+               ) -> Tuple[ModelOutput, torch.Tensor]:
+        """One batch's forward and ``_batch_metrics``, on a model in
+        evaluation mode: eagerly on the CPU, else a replay of the program of
+        its (sampler, B, T), captured again for another model.  A replay's
+        outputs are static: the next batch overwrites them."""
+        if self._backend is None:
+            return self._eager_batch(observations, actions)
+        key = (self.action_sampler, *observations.shape[:2])
+        program = self._programs.get(key)
+        if program is not None and program.model is self.model:
+            self._programs.move_to_end(key)
+        else:
+            self._programs.pop(key, None)
+            while len(self._programs) >= PROGRAMS:
+                self._programs.popitem(last=False)
+            evaluator = weakref.proxy(self)  # the program must not hold its owner
+            program = self._programs[key] = graphs.Program(
+                lambda obs, acts: ((), evaluator._eager_batch(obs, acts)), (),
+                [observations.clone(), actions.clone()], self.model, self._backend,
+                generators=(self.generator,))
+        return program(observations, actions)
+
     def evaluate(self, step: int, save_images: bool = True) -> Dict[str, float]:
         """Evaluates the model at ``step``; returns the logged metrics."""
         meter = AverageMeter()
         all_pred, all_gt = [], []
-        generator = torch.Generator(device=self.device).manual_seed(1234 + step)
+        self.generator.manual_seed(1234 + step)
         self.logger.print(f"== Evaluation [{step}][{self.logger_prefix}] ==")
         with eval_mode(self.model):
             batches_done = 0
@@ -158,11 +207,11 @@ class Evaluator:
                 batches_done += 1
                 observations = sequence_to_nchw(batch.observations, self.device)
                 actions = torch.as_tensor(batch.actions, device=self.device)
-                out = self._forward(observations, actions, generator)
+                out, values = self._batch(observations, actions)
                 if first is None:
-                    first = (batch, out)
+                    first = (batch, graphs.copied(out))
                 t = observations.shape[1]
-                values = self._batch_metrics(observations, out).cpu().numpy()
+                values = values.cpu().numpy()
                 results = dict(zip(_SCALARS, values[:len(_SCALARS)].tolist()))
                 terms = values[len(_SCALARS):len(_SCALARS) + 3 * t].reshape(3, t)
                 for i in range(t):

@@ -42,10 +42,33 @@ holds one capture:
 - A program captures the model in evaluation mode, as the JAX routes run
   with frozen statistics, and refuses a model in training mode.
 
+A ``TrainProgram`` is the training step's counterpart of the JAX
+trainer's ``jax.jit(train_step)``: ``fn`` runs the model in training mode,
+forward and backward, and the graph holds both.  It differs from a
+``Program`` where training writes state:
+
+- The gradients are static outputs.  Each recording starts with every
+  parameter's ``.grad`` at ``None``, so that the backward allocates them in
+  the graph's pool; a replay rewrites them in place, and the caller's
+  optimizer, which runs outside the graph, reads them there.
+- The warm-up runs whole steps, which fold the BatchNorm statistics and
+  the centroids and draw noise: every buffer of the model, the static state
+  and the generators are saved before it and restored after it.
+- A replay writes the BatchNorm statistics and the centroids in place
+  without advancing their version counters, which ``Program`` (and the
+  cached weight casts of ``models.layers._CastParameters``) rely on to see
+  an update; so every replay advances the counter of each buffer of the
+  model, as an eager step's in-place writes do.
+- The parameters move at every step, outside the graph, which reads them
+  where they lie and casts them inside itself: their versions are not
+  watched.
+
 ``CudaGraph`` records and replays.  ``StandIn``, the one test seam, calls
 ``fn`` on the same static buffers where the graph would replay, so that
 the CPU tests hold the buffer handling; ``backend_for`` never chooses it.
-A capture that fails raises: there is no eager fallback on the card.
+``Eager`` names the other seam, a route run op by op on any device
+(``resolve_backend``).  A capture that fails raises: there is no eager
+fallback on the card.
 """
 from __future__ import annotations
 
@@ -70,12 +93,14 @@ WARMUP_CALLS = 2
 
 
 def leaves(tree) -> List[torch.Tensor]:
-    """The tensors of a tree of tensors, lists, tuples, dataclasses and
-    ``None``, in order."""
+    """The tensors of a tree of tensors, lists, tuples, dicts, dataclasses
+    and ``None``, in order."""
     if isinstance(tree, torch.Tensor):
         return [tree]
     if dataclasses.is_dataclass(tree):
         tree = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
     if isinstance(tree, (list, tuple)):
         return [t for item in tree for t in leaves(item)]
     if tree is None:
@@ -91,6 +116,8 @@ def copied(tree):
     if dataclasses.is_dataclass(tree):
         return dataclasses.replace(tree, **{f.name: copied(getattr(tree, f.name))
                                             for f in dataclasses.fields(tree)})
+    if isinstance(tree, dict):
+        return {key: copied(value) for key, value in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(copied(item) for item in tree)
     return tree
@@ -126,6 +153,11 @@ class CudaGraph:
                 generators: Sequence[torch.Generator]) -> None:
         for generator in generators:
             self.graph.register_generator_state(generator)
+        # The warm-up's freed blocks stay cached for its stream, and the
+        # allocator cannot hand cached memory back to the device while a
+        # capture runs: a training step's capture would find the card full.
+        torch.cuda.synchronize(self.stream.device)
+        torch.cuda.empty_cache()
         current = torch.cuda.current_stream(self.stream.device)
         self.stream.wait_stream(current)
         with torch.cuda.stream(self.stream):
@@ -174,9 +206,24 @@ class StandIn:
             static.copy_(result)
 
 
+class Eager:
+    """The seam's other choice: the route runs op by op on any device.  The
+    step profiler, whose scopes are module hooks that a replay does not
+    fire, and the chip check's eager comparisons pass it."""
+
+
 def backend_for(device: torch.device) -> Optional[type]:
     """``CudaGraph`` on a CUDA device; ``None`` (eager) on the CPU."""
     return CudaGraph if torch.device(device).type == "cuda" else None
+
+
+def resolve_backend(device: torch.device, backend: Optional[type]) -> Optional[type]:
+    """The backend a route on ``device`` uses: ``backend_for(device)`` when
+    the caller names none, ``None`` (eager) for ``Eager``, else
+    ``backend``."""
+    if backend is None:
+        return backend_for(device)
+    return None if backend is Eager else backend
 
 
 class Program:
@@ -207,21 +254,32 @@ class Program:
     def _versions(self) -> List[int]:
         return [t._version for t in self._watched]
 
-    def _require_evaluation_mode(self) -> None:
+    def _require_mode(self) -> None:
         if self.model.training:
             raise RuntimeError("a captured route runs the model in evaluation mode; "
                                "call model.eval() first")
 
+    def _save(self) -> Callable[[], None]:
+        """Saves what the warm-up may move; returns what restores it."""
+        generator_states = [g.get_state() for g in self.generators]
+
+        def restore():
+            for generator, saved in zip(self.generators, generator_states):
+                generator.set_state(saved)
+        return restore
+
+    def _stale(self) -> bool:
+        return self._versions() != self._captured_versions
+
     def _capture(self) -> None:
-        self._require_evaluation_mode()
+        self._require_mode()
         device = next(itertools.chain(self.state, self.inputs)).device
         self._backend = None  # the previous graph and its pool go first
         backend = self._backend_type(device)
         counts = _counts()
-        generator_states = [g.get_state() for g in self.generators]
+        restore = self._save()
         backend.warm_up(lambda: self.fn(*self.state, *self.inputs), WARMUP_CALLS)
-        for generator, saved in zip(self.generators, generator_states):
-            generator.set_state(saved)
+        restore()
         _set_counts(counts)
         backend.capture(self._run, self.generators)
         self._delta = [after - before for after, before in zip(_counts(), counts)]
@@ -231,15 +289,59 @@ class Program:
         self._backend = backend
         self.captures += 1
 
+    def _replayed(self) -> None:
+        """What follows a replay: the launch counters moved as an eager call
+        moves them."""
+        for f, delta in zip(COUNTED, self._delta):
+            f.launches += delta
+
     def __call__(self, *values: torch.Tensor):
         """Copies ``values`` into the static inputs and replays; returns the
         static outputs, which the next call overwrites."""
-        self._require_evaluation_mode()
-        if self._versions() != self._captured_versions:
+        self._require_mode()
+        if self._stale():
             self._capture()
         for static, value in zip(self.inputs, values):
             static.copy_(value)
         self._backend.replay()
-        for f, delta in zip(COUNTED, self._delta):
-            f.launches += delta
+        self._replayed()
         return self._backend.outputs
+
+
+class TrainProgram(Program):
+    """A training step captured with the model in training mode: ``fn(*state,
+    *inputs)`` returns ``(new_state, outputs)`` as a ``Program``'s does, and
+    runs the backward, whose gradients it returns among its outputs (the
+    static gradients, which the caller points the parameters' ``.grad``
+    at).  See the module docstring for what it adds to ``Program``."""
+
+    def _require_mode(self) -> None:
+        if not self.model.training:
+            raise RuntimeError("a captured training step runs the model in training mode; "
+                               "call model.train() first")
+
+    def _save(self) -> Callable[[], None]:
+        restore_generators = super()._save()
+        tensors = list(itertools.chain(self.model.buffers(), self.state))
+        saved = [t.detach().clone() for t in tensors]
+
+        def restore():
+            restore_generators()
+            with torch.no_grad():
+                for tensor, value in zip(tensors, saved):
+                    tensor.copy_(value)
+            for p in self.model.parameters():
+                p.grad = None
+        return restore
+
+    def _stale(self) -> bool:
+        return False
+
+    def _run(self):
+        for p in self.model.parameters():
+            p.grad = None  # the backward allocates them: in the graph's pool
+        return super()._run()
+
+    def _replayed(self) -> None:
+        super()._replayed()
+        torch.autograd.graph.increment_version(list(self.model.buffers()))

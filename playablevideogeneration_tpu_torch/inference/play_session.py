@@ -20,6 +20,7 @@ graph from the session's generator, as the JAX session draws it outside
 """
 from __future__ import annotations
 
+import weakref
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -60,7 +61,7 @@ class PlaySession:
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         # One-hot rows are slices of this matrix, so a step uploads nothing.
         self._eye = torch.eye(self.actions_count, device=self.device)
-        self._backend = graphs.backend_for(self.device) if backend is None else backend
+        self._backend = graphs.resolve_backend(self.device, backend)
         # "step" and ("rollout", N) -> graphs.Program
         self._programs = {}
 
@@ -134,8 +135,10 @@ class PlaySession:
             return outputs
         program = self._programs.get(key)
         if program is None:
+            method = weakref.WeakMethod(fn)  # the program must not hold the session
             program = self._programs[key] = graphs.Program(
-                fn, self._state(), [v.clone() for v in values], self.model, self._backend)
+                lambda *tensors: method()(*tensors), self._state(),
+                [v.clone() for v in values], self.model, self._backend)
         return program(*values)
 
     def generate_next(self, action: int) -> np.ndarray:

@@ -173,6 +173,7 @@ def capture(batch: int, steps: int, height: int, width: int, t: int, trace_dir: 
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from playablevideogeneration_tpu_torch.inference import graphs
     from playablevideogeneration_tpu_torch.training.bench_harness import (
         build_synthetic_trainer,
         make_synthetic_batch,
@@ -182,8 +183,11 @@ def capture(batch: int, steps: int, height: int, width: int, t: int, trace_dir: 
         print(f"# [{time.strftime('%H:%M:%S')}] {msg}", file=sys.stderr, flush=True)
 
     device = torch.device(device)
+    # Op by op: the scopes are module hooks, which a graph's replay does
+    # not fire.
     trainer = build_synthetic_trainer(height=height, width=width, batch_size=batch,
-                                      observations_count=t, remat=True, device=device)
+                                      observations_count=t, remat=True, device=device,
+                                      backend=graphs.Eager)
     host = make_synthetic_batch(batch_size=batch, observations_count=t, height=height,
                                 width=width)
     b = type(host)(*(torch.as_tensor(x, device=device) for x in host))

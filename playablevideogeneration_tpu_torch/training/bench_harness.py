@@ -6,7 +6,7 @@ for the chip check and, later, the port's bench.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 
@@ -47,18 +47,19 @@ def build_synthetic_trainer(*, height: int, width: int, batch_size: int,
                             state_features: int = 64, compute_dtype: str = "bfloat16",
                             remat: bool = True, smooth_mi: bool = True,
                             pretraining_steps: int = 2, device: DeviceLike = "cuda",
-                            seed: int = 0) -> Trainer:
+                            seed: int = 0, backend: Optional[type] = None) -> Trainer:
     """A trainer over the synthetic config at the given workload shape,
     with the model (and the VGG) seeded from ``seed``, its state built.
     The defaults are the BAIR flagship's widths in bf16 with per-step
-    activation checkpointing and smooth MI."""
+    activation checkpointing and smooth MI.  ``backend`` is the trainer's
+    seam (``Trainer``)."""
     config = make_synthetic_config(
         height=height, width=width, actions_count=actions_count, batch_size=batch_size,
         observations_count=observations_count, observation_stacking=observation_stacking,
         hidden_state_size=hidden_state_size, state_features=state_features,
         pretraining_steps=pretraining_steps, compute_dtype=compute_dtype, remat=remat)
     model = make_model(config, device, seed)
-    trainer = Trainer(config, model, smooth_mi=smooth_mi, seed=seed)
+    trainer = Trainer(config, model, smooth_mi=smooth_mi, seed=seed, backend=backend)
     trainer.init_state()
     return trainer
 

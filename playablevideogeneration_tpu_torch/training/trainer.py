@@ -12,6 +12,15 @@ window and action-space plots; ``save_checkpoint`` and ``load_checkpoint``
 write and read the training state, and ``load_reference_weights`` imports
 a reference ``.pth.tar``'s weights.
 
+On a CUDA device the step's forward, backward, gradient norms and
+histograms are one captured CUDA graph (``inference.graphs.TrainProgram``)
+per ``(batch shape, phase, ground-truth frames)``, the counterpart of the
+JAX trainer's ``jax.jit(train_step)`` per ``(T, pretraining)``; Adam and
+the learning-rate schedule run eagerly after each replay, on the graph's
+static gradients.  A new key releases the previous graph first, so at most
+one lives.  On the CPU, through the ``graphs.Eager`` seam and with a
+process group the step runs op by op.
+
 With a process group (``parallel.mesh.init_distributed``) the trainer is
 one rank of the JAX trainer's ``(data, model)`` mesh (``tpu.model_parallel``
 ranks on the model axis, ``parallel.mesh.make_mesh``) with its
@@ -30,6 +39,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+import weakref
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
@@ -37,6 +47,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from playablevideogeneration_tpu_torch.data.loader import DataLoader
+from playablevideogeneration_tpu_torch.inference import graphs
 from playablevideogeneration_tpu_torch.models import layers
 from playablevideogeneration_tpu_torch.models.caddy import Caddy
 from playablevideogeneration_tpu_torch.models.centroids import average_centroid_distance
@@ -59,7 +70,7 @@ _PRINTED = ("loss", "avg_observations_rec_loss", "avg_perceptual_loss", "states_
 
 
 def compute_loss_terms(model: Caddy, observations: torch.Tensor, actions: torch.Tensor,
-                       gt_init: int, gumbel_temperature: float,
+                       gt_init: int, gumbel_temperature,
                        generator: torch.Generator, vgg: Vgg19,
                        loss_weights: Dict[str, float], mi_lambda: float, pretraining: bool,
                        use_motion_weights: bool, motion_weights_bias: float,
@@ -69,6 +80,9 @@ def compute_loss_terms(model: Caddy, observations: torch.Tensor, actions: torch.
 
     :param observations: (B, T, 3*stacking, H, W) in [-1, 1]
     :param actions: (B, T) ground-truth action indices
+    :param gumbel_temperature: a float, or a 0-d f32 tensor on the model's
+        device (the trainer's, so that a captured step replays with each
+        step's value)
     :param mi_matrix: the smooth-MI joint matrix, or None for the plain MI
     :return: (total loss, aux) where aux holds ``new_mi_matrix`` (None for
         the plain MI), ``info``, the terms and diagnostics, and
@@ -177,12 +191,14 @@ def compute_loss_terms(model: Caddy, observations: torch.Tensor, actions: torch.
 def _histogram(values: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """64-bin (counts, edges) of ``values`` on their device, as
     ``np.histogram`` returns them; all-equal values still get distinct
-    edges."""
+    edges.  The counts are a scatter of ones, which a graph can record:
+    ``torch.bincount`` reads its maximum back to the host."""
     lo, hi = values.min(), values.max()
     hi = torch.where(hi <= lo, lo + 1e-12, hi)
     edges = lo + (hi - lo) * torch.linspace(0.0, 1.0, 65, device=values.device)
     index = (torch.searchsorted(edges, values, right=True) - 1).clamp(0, 63)
-    return torch.bincount(index, minlength=64), edges
+    counts = torch.zeros(64, dtype=torch.int64, device=values.device)
+    return counts.scatter_add_(0, index, torch.ones_like(index)), edges
 
 
 class Trainer:
@@ -198,6 +214,9 @@ class Trainer:
         iterates; ``train_step`` alone needs none
     :param logger: a ``utils.logging.Logger`` (default: stdout only, on
         rank 0)
+    :param backend: for the tests, the profiler and the chip check only:
+        ``graphs.StandIn`` or ``graphs.Eager``; by default the device
+        decides (``graphs.resolve_backend``)
 
     The ranks form a mesh of ``world / M`` x ``M``, ``M`` being
     ``tpu.model_parallel``: a world or a node's ranks that ``M`` does not
@@ -208,7 +227,7 @@ class Trainer:
 
     def __init__(self, config: dict, model: Caddy, smooth_mi: bool = False,
                  vgg: Optional[Vgg19] = None, seed: int = 0, dataset=None,
-                 logger: Optional[Logger] = None):
+                 logger: Optional[Logger] = None, backend: Optional[type] = None):
         tpu = config.get("tpu", {})
         self.process = mesh.process_info()
         self.distributed = dist.is_initialized()
@@ -273,6 +292,13 @@ class Trainer:
                             if self.process.rank == 0 else None)
         self._profiler = None
         self._profile_stop_at = 0
+        self._backend = graphs.resolve_backend(self.device, backend)
+        # The train step's graph, its key and its metrics' names; captures
+        # counts the graphs recorded.
+        self._program: Optional[graphs.TrainProgram] = None
+        self._program_key = None
+        self._program_names: list = []
+        self.captures = 0
 
     def init_state(self) -> TrainState:
         """Puts the model in training mode and builds the optimizer, the
@@ -280,6 +306,7 @@ class Trainer:
         group, rank 0's parameters and buffers first replace every rank's,
         and then each sharded layer keeps this rank's slice, so that Adam's
         moments are slices too."""
+        self.drop_program()
         self.model.train()
         if self.distributed:
             mesh.broadcast_from_rank0(self.model)
@@ -315,6 +342,7 @@ class Trainer:
         tensor, its slice) to its device, whatever mesh wrote it."""
         if self.state is None:
             raise RuntimeError("call init_state first")
+        self.drop_program()  # the MI matrix is replaced
         self.state.load_state_dict(ckpt_lib.restore_checkpoint(self._checkpoint_path(name)))
         self.global_step = self.state.step
         if self.distributed:
@@ -329,6 +357,7 @@ class Trainer:
         checks every shape)."""
         if self.state is None:
             raise RuntimeError("call init_state first")
+        self.drop_program()
         load_jax_variables(self.model, load_reference_checkpoint(path))
         self.logger.print(f"- Imported reference checkpoint weights from {path}")
 
@@ -371,37 +400,31 @@ class Trainer:
             self.global_step if step is None else step, b["observations_count_start"],
             b["observations_count"], b["observations_count_steps"])
 
-    def train_step(self, batch) -> Dict[str, Any]:
-        """One optimizer step on ``batch`` (``observations`` (B, T, H, W,
-        3*stacking) in [-1, 1], channels last as the loader gives them, and
-        ``actions`` (B, T); numpy arrays or tensors).  The phase is
-        pretraining for the first ``pretraining_steps`` steps.
+    def drop_program(self) -> None:
+        """Releases the train step's graph and its memory pool: the program,
+        the static gradients the parameters point at and the plot arrays
+        among its outputs.  The next step captures anew."""
+        if self._program is None:
+            return
+        self._program = self._program_key = None
+        for p in self.model.parameters():
+            p.grad = None
+        self.plot_arrays = {}
 
-        :return: the loss, its terms and diagnostics, the global and
-            per-subnetwork gradient norms, and the schedules' values, as
-            floats; with ``tpu.grad_histograms``, also ``_grad_hist/<module>``
-            (counts, edges) numpy pairs
-        """
-        if self.state is None:
-            raise RuntimeError("call init_state first")
-        state = self.state
-        self.global_step += 1
-        observations = sequence_to_nchw(batch.observations, self.device)
-        actions = torch.as_tensor(batch.actions, device=self.device)
-        t = observations.shape[1]
-        pretraining = self.global_step <= self.config["training"]["pretraining_steps"]
-        gt_init = min(self.get_ground_truth_observations_count(), t - 1)
-        gumbel_t = self.get_gumbel_temperature()
-        lr = state.scheduler.get_last_lr()[0]
-
-        state.optimizer.zero_grad(set_to_none=True)
+    def _gradients(self, observations: torch.Tensor, actions: torch.Tensor,
+                   temperature: torch.Tensor, mi_matrix: Optional[torch.Tensor],
+                   gt_init: int, pretraining: bool) -> Tuple[list, Dict[str, Any]]:
+        """The step up to the optimizer: forward, backward, the zero
+        gradients of unused parameters, the norms and the optional
+        histograms.  Returns the metrics' names and, on the device, their
+        values (``values``), the parameters' gradients (``grads``), the
+        histograms, the plot arrays and the new MI matrix."""
         global_batch = (mesh.global_batch(self.mesh) if self.distributed
                         else contextlib.nullcontext())
         with global_batch:
             total, aux = compute_loss_terms(
-                self.model, observations, actions, gt_init, gumbel_t, self.generator,
-                self.vgg, pretraining=pretraining,
-                mi_matrix=state.mi_matrix if self.smooth_mi else None, **self._loss_kwargs)
+                self.model, observations, actions, gt_init, temperature, self.generator,
+                self.vgg, pretraining=pretraining, mi_matrix=mi_matrix, **self._loss_kwargs)
             total.backward()
 
             # A parameter the phase does not use (state_to_hidden in the
@@ -440,21 +463,101 @@ class Trainer:
                 full.setdefault(m, []).extend(sharded[id(p)].gather(p.grad) for p in ps)
             histograms = {m: _histogram(torch.cat([x.flatten().float() for x in g]))
                           for m, g in full.items()}
-        state.optimizer.step()
-        state.scheduler.step()
-        if self.smooth_mi:
-            state.mi_matrix = aux["new_mi_matrix"]
-        state.step += 1
-        self.plot_arrays = aux["plot_arrays"]
-
         norms = {"grad_norm/global": torch.sqrt(sum(squares.values()))}
         for m, sq in squares.items():
             norms[f"grad_norm/{m}"] = torch.sqrt(sq)
-        values = torch.cat([averaged, torch.stack(list(norms.values()))]).tolist()
-        metrics = dict(zip(list(local) + list(norms), values))
+        return list(local) + list(norms), dict(
+            values=torch.cat([averaged, torch.stack(list(norms.values()))]),
+            grads=[p.grad for p in self.model.parameters()], histograms=histograms,
+            plot_arrays=aux["plot_arrays"], new_mi_matrix=aux["new_mi_matrix"])
+
+    def _replay(self, observations: torch.Tensor, actions: torch.Tensor,
+                temperature: torch.Tensor, gt_init: int, pretraining: bool
+                ) -> Tuple[list, Dict[str, Any]]:
+        """``_gradients`` as a replay of the graph of its key, captured
+        first when the key, the generator or the MI matrix is new; the
+        parameters' ``.grad`` pointed at the graph's static gradients.  The
+        new MI matrix is written into the state's in place."""
+        key = (tuple(observations.shape), pretraining, gt_init)
+        mi = [self.state.mi_matrix] if self.smooth_mi else []
+        if (self._program is None or self._program_key != key
+                or self._program.generators[0] is not self.generator
+                or any(a is not b for a, b in zip(self._program.state, mi))):
+            # The old graph's pool goes first: nothing may hold the old
+            # program while the new one warms up and records.
+            self.drop_program()
+            names = self._program_names = []
+            # Through a weak reference: the program the trainer holds must
+            # not hold the trainer, or a dropped trainer's graph and its
+            # pool would wait for the cycle collector.
+            trainer = weakref.proxy(self)
+
+            def step(*tensors):
+                *mi_state, obs, acts, temp = tensors
+                step_names, outputs = trainer._gradients(
+                    obs, acts, temp, mi_state[0] if mi_state else None, gt_init, pretraining)
+                names[:] = step_names
+                new_mi = outputs.pop("new_mi_matrix")
+                return [new_mi] if mi_state else [], outputs
+
+            self._program = graphs.TrainProgram(
+                step, mi, [observations.clone(), actions.clone(), temperature.clone()],
+                self.model, self._backend, generators=(self.generator,))
+            self._program_key = key
+            self.captures += 1
+        outputs = self._program(observations, actions, temperature)
+        for p, grad in zip(self.model.parameters(), outputs["grads"]):
+            p.grad = grad
+        return self._program_names, outputs
+
+    def train_step(self, batch) -> Dict[str, Any]:
+        """One optimizer step on ``batch`` (``observations`` (B, T, H, W,
+        3*stacking) in [-1, 1], channels last as the loader gives them, and
+        ``actions`` (B, T); numpy arrays or tensors).  The phase is
+        pretraining for the first ``pretraining_steps`` steps.
+
+        :return: the loss, its terms and diagnostics, the global and
+            per-subnetwork gradient norms, and the schedules' values, as
+            floats; with ``tpu.grad_histograms``, also ``_grad_hist/<module>``
+            (counts, edges) numpy pairs
+        """
+        if self.state is None:
+            raise RuntimeError("call init_state first")
+        state = self.state
+        self.global_step += 1
+        observations = sequence_to_nchw(batch.observations, self.device)
+        actions = torch.as_tensor(batch.actions, device=self.device)
+        t = observations.shape[1]
+        pretraining = self.global_step <= self.config["training"]["pretraining_steps"]
+        gt_init = min(self.get_ground_truth_observations_count(), t - 1)
+        gumbel_t = self.get_gumbel_temperature()
+        # A 0-d f32 tensor, as the JAX step takes it: a graph replays with
+        # each step's value, where a Python float would be recorded.
+        temperature = torch.full((), gumbel_t, dtype=torch.float32, device=self.device)
+        lr = state.scheduler.get_last_lr()[0]
+
+        if self._backend is None or self.distributed:
+            # Op by op: on the CPU, through the seam, or with a process
+            # group, whose gloo collectives copy through the host and cannot
+            # be captured.
+            state.optimizer.zero_grad(set_to_none=True)
+            names, outputs = self._gradients(
+                observations, actions, temperature,
+                state.mi_matrix if self.smooth_mi else None, gt_init, pretraining)
+            if self.smooth_mi:
+                state.mi_matrix = outputs["new_mi_matrix"]
+        else:
+            names, outputs = self._replay(observations, actions, temperature, gt_init,
+                                          pretraining)
+        state.optimizer.step()
+        state.scheduler.step()
+        state.step += 1
+        self.plot_arrays = outputs["plot_arrays"]
+
+        metrics = dict(zip(names, outputs["values"].tolist()))
         metrics.update(ground_truth_observations=gt_init, gumbel_temperature=gumbel_t,
                        observations_count=t, lr=lr, pretraining=float(pretraining))
-        for m, (counts, edges) in histograms.items():
+        for m, (counts, edges) in outputs["histograms"].items():
             metrics[f"_grad_hist/{m}"] = (counts.cpu().numpy(), edges.cpu().numpy())
         return metrics
 
