@@ -1,6 +1,7 @@
 """Drives the PyTorch/CUDA port's play and training routes, its training
 loop, the entry points after training, the distribution metrics, the
-convergence soak, the Faster R-CNN detector, data- and tensor-parallel
+convergence soak, the Faster R-CNN detector (its NMS in K4, a hand-written
+sweep kernel), data- and tensor-parallel
 training, the tools (the step profiler, the input-pipeline bench and the
 CLI soak), the graphed inference routes and the graphed training step and
 evaluation batch against eager ones, on one NVIDIA Hopper GPU.
@@ -31,9 +32,11 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    equal its plain version bit for bit, and each case must take the path
    it should (packs of 4 elements for K1 and K2 and of 16 bytes for K3,
    or one element per thread where the sizes or the alignment forbid
-   them); and the gate
-   update's autograd function (K1 forward, K2 backward) against autograd
-   through the plain gate math (1e-5);
+   them); K4 (the NMS sweep) bit for bit at every set shape of a 16-frame
+   detector call (64 and 16 sets of 1000 candidates, 16 of 504), at 1, 33
+   and 999 candidates, and with every pair or no pair overlapping; and the
+   gate update's autograd function (K1 forward, K2 backward) against
+   autograd through the plain gate math (1e-5);
 4. play route: the bf16 flagship (configs/01_bair.yaml, seeded random
    weights and BatchNorm statistics) through ``PlaySession``, whose steps
    and rollouts replay captured CUDA graphs: start, three
@@ -113,8 +116,11 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    with configs/evaluation/01_bair.yaml's settings, ``BAIR_EVALUATION_CONFIG``,
    on the builder's videos in memory, with random VGG19 and LPIPS weights
    written in the converter's layout: every metric key, the markers of the
-   absent backbones, finite values; seconds per batch split into frame
-   metrics with VGG19, LPIPS and the host's share; peak memory), and last
+   absent backbones, finite values; seconds per batch split into the
+   frame metrics (a graph replay) and the host's share; peak memory), one
+   batch's frame metrics graphed against op by op (``graphs.Eager``): bit
+   for bit, two copies in and one out, both ways timed and profiled, LPIPS
+   alone op by op; and last
    f32 with TF32 off against the CPU's plain path: one builder batch of 2 x
    8 frames within 1e-3 (the CPU following the card's inferred actions,
    which must match its own but for ties within 1e-4 of log-probability),
@@ -131,8 +137,11 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    classifier and the embedder hold the files' weights bit for bit;
    ``cli.fid`` on the two datasets' statistics (written with the card's
    extractor) prints the evaluator's FID within rtol 1e-9, and
-   ``--weights`` resolves the file; FID and FVD again with TF32 off; in
-   f32 with TF32 off, the card against the CPU: Inception's features of 4
+   ``--weights`` resolves the file; FID and FVD again with TF32 off (each
+   backbone a graph per input shape and TF32 setting); the extractor, the
+   classifier (30 frames) and the embedder (16 videos) graphed against
+   op by op with TF32 off, bit for bit, one copy in and one out, timed and
+   profiled both ways; in f32 with TF32 off, the card against the CPU: Inception's features of 4
    frames and I3D's embeddings of 2 videos within atol 1e-4 * max(scale,
    0.1) and rtol 1e-4, the class probabilities within 1e-5.  Prints the
    Inception's ms per 30-frame batch, the I3D's per 16-video call, the
@@ -157,9 +166,13 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    ``make_detector`` for ``evaluation.detector: frcnn``: the weights the
    file's bit for bit; 16 tennis-shaped 96x256 frames at the default
    800/1333 transform (500x1333, padded to 512x1344) give static, finite
-   outputs and person boxes above 0.8; ms per frame of the backbone and
-   of the box stages, kernel launches and host copies per frame, peak
-   memory, person boxes with TF32 on and off; then f32 with TF32 off, the
+   outputs and person boxes above 0.8, the forward one replayed graph
+   with 3 K4 launches, one copy in and three out; the same call op by op
+   (``graphs.Eager``) bit for bit; ms per frame both ways, whole and split
+   into the backbone and FPN and the box stages (as graphs on static
+   frames and levels), kernels and copies per frame, peak memory; K4 bit
+   for bit and timed on the call's own rows; person boxes with TF32 on
+   and off (a graph each, each equal to op by op); then f32 with TF32 off, the
    card against the CPU at a 32/86 transform: the FPN levels within atol
    1e-4 * max(scale, 0.1) and rtol 1e-4, the detections within 1e-4
    (scores) and 1e-2 px (boxes) in every frame with no person score within
@@ -248,10 +261,12 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
 It prints JSON lines as it goes, then the kernels' summary line (``ms``,
 ``cold_ms``, ``plain_ms`` and ``bound_ms`` there are per step of the
 kernel's route: the sum over a bf16 play step's launches for K1 and K3,
-over a bf16 training step's 33 K2 launches for K2; ``launches`` counts
-phase 4's, 7's, 10's, 11's, 13's, 15's, 16's, 17's, 18's and 19's runs in this process,
-without the f32 parity checks and the soak's stage processes), the card's
-nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+over a bf16 training step's 33 K2 launches for K2, over a 16-frame
+detector call's 3 launches for K4; ``launches`` counts phase 4's, 7's,
+10's, 11's, 13's, 15's, 16's, 17's, 18's and 19's runs in this process
+for K1-K3, without the f32 parity checks and the soak's stage processes,
+and phase 14's main path for K4), the card's nvidia-smi line, and last
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -357,6 +372,7 @@ from playablevideogeneration_tpu_torch.ops.cuda.fused_norm_act import (
     _batch_norm_leaky_relu,
     fused_batch_norm_leaky_relu,
 )
+from playablevideogeneration_tpu_torch.ops.cuda.nms_sweep import _nms_sweep, nms_sweep
 from playablevideogeneration_tpu_torch.parallel import mesh
 from playablevideogeneration_tpu_torch.tools import convergence_soak, gpu_soak, profile_step
 from playablevideogeneration_tpu_torch.tools.profile_step import breakdown
@@ -450,6 +466,16 @@ KERNELS = {
     "fused_norm_act": ("fused_norm_act",
                        "playablevideogeneration_tpu/ops/pallas/fused_norm_act.py:71"),
 }
+# K4, the greedy NMS sweep: it replaces no Pallas kernel but the lax.scan
+# of the JAX detector's nms_mask, inside its jax.jit.
+NMS_KERNEL = dict(name="nms_sweep",
+                  source="playablevideogeneration_tpu_torch/ops/cuda/csrc/nms_sweep.cu",
+                  replaces="playablevideogeneration_tpu/evaluation/metrics/frcnn.py:277")
+# K4's sets: a 16-frame detector call sweeps the four RPN levels of 1000
+# candidates of every frame in one launch, P6's 504 (8x21x3 anchors at
+# 512x1344) in another and the box stage's 1000 RoIs in a third.
+NMS_SHAPES = [(64, 1000), (16, 1000), (16, 504)]
+NMS_RAGGED = [(3, 1), (3, 33), (3, 999)]
 ROLLOUT_FRAMES = 64
 TIMED_STEPS = 60
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the
@@ -742,6 +768,81 @@ def check_kernels(gen) -> dict:
                  dtype=DTYPE_NAMES[dtype], vector_width=width, max_abs_err=err)
         require(all(w - {1} for w in widths.values()), f"{dtype}: vector widths {widths}")
     return errors
+
+
+def nms_rows(sets: int, n: int, gen, overlap: str = "random") -> torch.Tensor:
+    """The packed IoU > 0.7 rows (``frcnn._packed_suppression``) of
+    ``sets`` seeded sets of ``n`` boxes on the card: random boxes of 2-40 px
+    over 200 px, or one box repeated ("all", every pair overlapping), or
+    boxes side by side ("none")."""
+    centres = torch.rand((sets, n, 2), generator=gen, device="cuda") * 200
+    sizes = torch.rand((sets, n, 2), generator=gen, device="cuda") * 38 + 2
+    boxes = torch.cat([centres - sizes / 2, centres + sizes / 2], -1)
+    if overlap == "all":
+        boxes = boxes[:, :1].expand(sets, n, 4).contiguous()
+    elif overlap == "none":
+        x = torch.arange(n, device="cuda", dtype=torch.float32) * 10
+        boxes = torch.stack([x, x * 0, x + 5, x * 0 + 5], -1).expand(sets, n, 4).contiguous()
+    scores = torch.rand((sets, n), generator=gen, device="cuda")
+    return frcnn._packed_suppression(boxes, scores, frcnn.RPN_NMS_THRESH)[1]
+
+
+def check_nms(rows: torch.Tensor, what: str) -> float:
+    """K4 on ``rows`` against its plain version, bit for bit (its output is
+    boolean); returns the largest difference (0)."""
+    got, want = nms_sweep(rows), _nms_sweep(rows)
+    torch.cuda.synchronize()
+    require(got.dtype == torch.bool and got.shape == want.shape and torch.equal(got, want),
+            f"nms_sweep {what} {tuple(rows.shape)} differs from its plain version")
+    return float((got != want).sum().item())
+
+
+def check_nms_kernel(gen) -> float:
+    """Phase 3, K4 at every shape of a 16-frame detector call, at ragged
+    sizes and with every pair or no pair overlapping; returns the largest
+    error."""
+    err = 0.0
+    for (sets, n), overlap in ([(shape, "random") for shape in NMS_SHAPES + NMS_RAGGED]
+                               + [(NMS_SHAPES[1], "all"), (NMS_SHAPES[1], "none")]):
+        rows = nms_rows(sets, n, gen, overlap)
+        err = max(err, check_nms(rows, overlap))
+        kept = int(_nms_sweep(rows).sum().item())
+        require(overlap != "all" or kept == sets, f"all overlapping: {kept} kept of {sets} sets")
+        require(overlap != "none" or kept == sets * n, f"none overlapping: {kept} kept")
+        emit(phase="kernel_check", kernel="nms_sweep", shape=[sets, n, rows.shape[-1]],
+             overlap=overlap, kept=kept, dtype="bool", max_abs_err=err)
+    return err
+
+
+def nms_time(rows: torch.Tensor) -> dict:
+    """K4's device time per launch on ``rows`` (one launch of a detector
+    call, recorded there), warm (back to back, in L2) and cold (rotating
+    over copies totalling COLD_BYTES), beside its bound and its plain
+    version's time.  The bound counts the bytes this input needs: the rows
+    of the kept candidates, the only rows the sweep must read, and the
+    mask written; its ``all_rows_bound_us`` counts every row.  The plain
+    version steps through the candidates with a few launches each, so its
+    time is one call's, between CUDA events, after a warm one."""
+    sets, n, width = rows.shape
+    kept = int(_nms_sweep(rows).sum().item())
+    bound, bound_by = bound_ms(kept * width + sets * n, kept * width // 4)
+    ms = device_ms(lambda: nms_sweep(rows))
+    copies = [rows] + [rows.clone() for _ in range(math.ceil(COLD_BYTES / rows.numel()))]
+    turn = itertools.cycle(copies)
+    cold_ms = device_ms(lambda: nms_sweep(next(turn)))
+    del copies, turn
+    _nms_sweep(rows)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    _nms_sweep(rows)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    emit(phase="kernel_time", kernel="nms_sweep", shape=[sets, n, width], kept=kept,
+         us=ms * 1e3, cold_us=cold_ms * 1e3, bound_us=bound * 1e3, bound_by=bound_by,
+         all_rows_bound_us=bound_ms(rows.numel() + sets * n, 0)[0] * 1e3,
+         plain_us=plain_ms * 1e3, bound_share_cold=bound / cold_ms)
+    return dict(ms=ms, cold_ms=cold_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
 
 
 def check_gate_autograd(gen) -> None:
@@ -1053,9 +1154,12 @@ def time_route(model, obs: np.ndarray, actions: np.ndarray) -> dict:
 
 
 def reset_launches() -> None:
+    """Sets every kernel's count to 0 (``read_launches`` reads K1-K3's;
+    K4 runs in the detector alone, which reads its own)."""
     fused_lstm_gates.launches = 0
     fused_lstm_gates_bwd.launches = 0
     fused_batch_norm_leaky_relu.launches = 0
+    nms_sweep.launches = 0
 
 
 def read_launches() -> dict:
@@ -1673,28 +1777,16 @@ def evaluation_config(root: str) -> dict:
 
 class EvaluationRecorder:
     """Within the block, each dataset evaluator's frame-metric batches (the
-    five metrics with VGG19, and LPIPS), LPIPS alone (synchronised around
-    it) and the whole ``compute_metrics`` are timed."""
+    five metrics with VGG19, and LPIPS: one graph replay and its readback
+    on the card) and the whole ``compute_metrics`` are timed."""
 
     def __enter__(self):
-        self.frame_s, self.lpips_s, self.total_s = [], [], []
+        self.frame_s, self.total_s = [], []
         self._saved = DatasetEvaluator._compute_frame_metrics, DatasetEvaluator.compute_metrics
         frame_metrics, compute_metrics = self._saved
         recorder = self
 
-        def timed_lpips(lpips_fn):
-            def fn(reference, generated):
-                torch.cuda.synchronize()
-                start = time.perf_counter()
-                out = lpips_fn(reference, generated)
-                torch.cuda.synchronize()
-                recorder.lpips_s.append(time.perf_counter() - start)
-                return out
-            return fn
-
         def recorded_frame_metrics(evaluator, reference, generated):
-            if evaluator.lpips_fn is not None and not hasattr(evaluator, "_timed"):
-                evaluator.lpips_fn, evaluator._timed = timed_lpips(evaluator.lpips_fn), True
             start = time.perf_counter()
             out = frame_metrics(evaluator, reference, generated)  # ends in a readback
             recorder.frame_s.append(time.perf_counter() - start)
@@ -1920,12 +2012,12 @@ def after_training(root: str) -> dict:
     require(os.path.isfile(os.path.join(eval_config["logging"]["output_directory"], "data.yml")),
             "no data.yml")
     batches = len(timing.frame_s)
-    frame_s, lpips_s = sum(timing.frame_s), sum(timing.lpips_s)
+    frame_s = sum(timing.frame_s)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     emit(phase="after_evaluation", batches=batches, keys=len(metrics),
          seconds=timing.total_s[0], seconds_per_batch=timing.total_s[0] / batches,
-         frame_metrics_and_vgg_s_per_batch=(frame_s - lpips_s) / batches,
-         lpips_s_per_batch=lpips_s / batches,
+         frame_metrics_s_per_batch=frame_s / batches,
+         frame_metrics_s_first_batch=timing.frame_s[0],
          host_loader_detection_actions_s_per_batch=(timing.total_s[0] - frame_s) / batches,
          psnr_avg=metrics["psnr/avg"], ssim_avg=metrics["ssim/avg"],
          lpips_avg=metrics["lpips/avg"], vgg_sim_avg=metrics["vgg_sim/avg"],
@@ -1933,11 +2025,79 @@ def after_training(root: str) -> dict:
          peak_memory_gib=peak_gib, allocated_before_gib=evaluation_base_gib,
          card=nvidia_smi())
 
-    # 6. f32 with TF32 off, the card against the plain path on the CPU: one
+    frame_metrics_both_ways(eval_config, pair)
+
+    # 7. f32 with TF32 off, the card against the plain path on the CPU: one
     # builder batch of 2 x 8 frames, and one evaluation batch's metrics.
     after_training_parity(config, eval_config, source.state_dict(), test_videos, pair)
     emit(phase="after_training", launches=totals)
     return totals, eval_config, pair
+
+
+def host_transfers(call) -> int:
+    """The synchronising CUDA operations of one call: a copy from pageable
+    host memory to the card and a readback each synchronise, a replay does
+    not."""
+    with counted_syncs() as syncs:
+        call()
+    return len(syncs)
+
+
+def both_ways(graphed, eager, args: tuple, what: str, copies_in: int) -> dict:
+    """A graphed function against its op-by-op twin (``graphs.Eager``) on
+    ``args``: the first graphed call captures, the next ones make
+    ``copies_in`` copies to the card and one readback and nothing else
+    that synchronises; one is profiled right after the capture; the
+    outputs bit for bit; both ways timed on the host's clock (median of 3
+    after one), each call ending in its readback."""
+    got = graphed(*args)
+    graphed_activity = device_activity(lambda: graphed(*args))
+    transfers = host_transfers(lambda: graphed(*args))
+    require(transfers == copies_in + 1,
+            f"{what}: a graphed call synchronised {transfers} times, not {copies_in + 1}")
+    require_same_outputs(got, eager(*args), what)
+    eager_activity = device_activity(lambda: eager(*args))
+    graphed_ms = synchronised_ms(lambda i: graphed(*args), 3, warm=1)
+    eager_ms = synchronised_ms(lambda i: eager(*args), 3, warm=1)
+    return dict(bit_for_bit=True, graphed_host_transfers=transfers,
+                graphed_ms=statistics.median(graphed_ms),
+                eager_ms=statistics.median(eager_ms), graphed_ms_all=graphed_ms,
+                eager_ms_all=eager_ms, graphed_kernels=graphed_activity["kernels"],
+                eager_kernels=eager_activity["kernels"],
+                graphed_copies=graphed_activity["copies"],
+                eager_copies=eager_activity["copies"],
+                graphed_busy_ms=graphed_activity["busy_ms"], graphed_top=graphed_activity["top"],
+                eager_busy_ms=eager_activity["busy_ms"])
+
+
+def frame_metrics_both_ways(eval_config: dict, pair: tuple) -> None:
+    """Phase 11, step 6: one 1 x 30 evaluation batch's frame metrics (the
+    converted-layout VGG19 and LPIPS) graphed, the evaluator's default on
+    the card, against op by op (``graphs.Eager``): bit for bit, two copies
+    in and one out per graphed call, both ways timed and profiled; and
+    LPIPS alone op by op, its share of a batch."""
+    weights = eval_config["tpu"]["pretrained_weights_dir"]
+    tree = load_variables_npz(os.path.join(weights, "vgg19.npz"))
+    heads = load_lpips_linear_weights(os.path.join(weights, "lpips_lin.npz"))
+    reference, generated = collate([pair[0][0]]), collate([pair[1][0]])
+    args = (reference.observations, generated.observations)
+    gc.collect()  # no graph captured before the profiled one is freed after it
+
+    def evaluator(backend):
+        return DatasetEvaluatorBair(
+            eval_config, Logger(), *pair, vgg_variables=tree,
+            lpips_fn=make_lpips_fn(make_metric_vgg(tree, "cuda"), heads), device="cuda",
+            backend=backend)
+
+    graphed, eager = evaluator(None), evaluator(graphs.Eager)
+    ways = both_ways(graphed._compute_frame_metrics, eager._compute_frame_metrics, args,
+                     "the frame metrics", copies_in=2)
+    ref, gen = (torch.as_tensor(x, device="cuda") for x in args)
+    with torch.no_grad():
+        lpips_ms = synchronised_ms(lambda i: eager.lpips_fn(ref, gen), 3, warm=1)
+    emit(phase="after_frame_metrics_both_ways", batch=list(args[0].shape[:2]),
+         lpips_eager_ms=statistics.median(lpips_ms),
+         tf32=torch.backends.cudnn.allow_tf32, **ways)
 
 
 def after_training_parity(config: dict, eval_config: dict, state: dict, test_videos: list,
@@ -2239,7 +2399,28 @@ def distribution_metrics(root: str, eval_config: dict, pair: tuple) -> None:
          fid_rel_change=fid_off / metrics["fid"] - 1, fvd_tf32_on=metrics["fvd"],
          fvd_tf32_off=fvd_off, fvd_rel_change=fvd_off / metrics["fvd"] - 1)
 
-    # 5. f32 with TF32 off: the card's backbones against the CPU's.
+    # 5. Graphed against op by op (graphs.Eager) with TF32 off: a fresh
+    # graph of each backbone, on one evaluation batch's 30 frames and on
+    # the 16 reference videos.
+    del evaluator
+    for name in ("fid_extractor", "class_probability_fn", "fvd_embedder"):
+        backbones[name].programs.clear()  # their pools go before the next captures
+    gc.collect()  # no graph captured before the profiled ones is freed after them
+    frames30 = collate([pair[0][0]]).observations[0]
+    videos16 = collate([pair[0][i] for i in range(len(pair[0]))]).observations
+    ways = {}
+    for name, make, weights_file, x in (
+            ("fid_extractor", make_fid_extractor, "fid_inception", frames30),
+            ("class_probability_fn", make_class_probability_fn, "fid_inception", frames30),
+            ("fvd_embedder", make_fvd_embedder, "i3d", videos16)):
+        ways[name] = both_ways(make(files[weights_file], "cuda"),
+                               make(files[weights_file], "cuda", backend=graphs.Eager), (x,),
+                               name, copies_in=1)
+        ways[name]["input"] = list(x.shape)
+    emit(phase="distribution_both_ways", tf32=False, **ways)
+    del videos16
+
+    # 6. f32 with TF32 off: the card's backbones against the CPU's.
     sample = collate([pair[0][0], pair[1][0]]).observations  # (2, 30, 256, 256, 3)
     images = sample[0, :BACKBONE_PARITY_FRAMES]
     videos = sample[:BACKBONE_PARITY_VIDEOS]
@@ -2521,52 +2702,128 @@ def detections_agree(card: tuple, cpu: tuple, frame: int) -> bool:
                 and np.abs(boxes - want_boxes).max() <= FRCNN_BOX_ATOL)
 
 
-def detector_phase(root: str) -> None:
+class NmsRows:
+    """Within the block, a copy of the rows of every K4 call that the
+    detector module makes (run it eagerly: a replay calls no wrapper)."""
+
+    def __enter__(self):
+        self.rows = []
+        self._saved = frcnn.nms_sweep
+        saved, rows = self._saved, self.rows
+
+        def recorded(packed):
+            rows.append(packed.clone())
+            return saved(packed)
+
+        frcnn.nms_sweep = recorded
+        return self
+
+    def __exit__(self, *exc_info):
+        frcnn.nms_sweep = self._saved
+
+
+def device_activity(call) -> dict:
+    """One call of ``call`` under ``torch.profiler``: its kernels (memsets
+    among them, copies not), its copies by direction (the profiler of the
+    card's PyTorch 2.11 has missed host-to-device copies late in a long
+    process: ``host_transfers`` counts them), its device busy ms and its
+    five costliest device operations (name, count, ms).  Profile a graph's
+    replay only right after its capture: see the profiler crash under
+    "Captured train steps" in ROADMAP.md's traps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    copies = {way: sum(e.count for e in events if e.key.startswith(f"Memcpy {way}"))
+              for way in ("HtoD", "DtoH", "DtoD")}
+    top = sorted(events, key=lambda e: -e.device_time_total)[:5]
+    return dict(kernels=sum(e.count for e in events if not e.key.startswith("Memcpy")),
+                copies=copies, busy_ms=sum(e.device_time_total for e in events) / 1e3,
+                top=[(e.key[:80], e.count, e.device_time_total / 1e3) for e in top])
+
+
+def require_same_outputs(got, want, what: str) -> None:
+    """Numpy outputs (a tuple, a dict or one array) equal bit for bit."""
+    def arrays(out):
+        if isinstance(out, dict):
+            return [out[key] for key in sorted(out)]
+        return list(out) if isinstance(out, tuple) else [out]
+
+    got, want = arrays(got), arrays(want)
+    require(len(got) == len(want) and all(
+        a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+        for a, b in zip(got, want)), f"{what}: graphed and eager differ")
+
+
+def detector_phase(root: str) -> dict:
     """Phase 14: ``evaluation.detector: frcnn`` through ``make_detector`` on a
     random ``frcnn.npz`` in the converter's layout: the loaded weights are
     the file's bit for bit; 16 tennis-shaped frames at the default transform
-    give static, finite outputs with some person boxes above 0.8; timings
-    (backbone and box stages apart), launches per frame and peak memory,
-    the person boxes with TF32 on and off; then f32 with TF32 off against
-    the CPU at a 32/86 transform: the FPN levels within backbone_error's
-    tolerance, the final detections within FRCNN_SCORE_ATOL and
-    FRCNN_BOX_ATOL in every frame that hangs on no score near a threshold
-    (``near_a_threshold``; flips across those are counted), and the exact
-    rig's detections bit for bit."""
-    from torch.profiler import ProfilerActivity, profile
-
+    give static, finite outputs with some person boxes above 0.8, the
+    detector's forward a replayed graph (3 K4 launches per call, one copy
+    in, three out); the same call op by op (``graphs.Eager``) bit for bit,
+    both ways timed whole and split (backbone and FPN, box stages) with
+    their kernels and copies; K4 bit for bit and timed on the rows the call
+    gave it; the person boxes with TF32 on and off (a graph per setting,
+    each equal to the eager call); peak memory; then f32 with TF32 off
+    against the CPU at a 32/86 transform: the FPN levels within
+    backbone_error's tolerance, the final detections within
+    FRCNN_SCORE_ATOL and FRCNN_BOX_ATOL in every frame that hangs on no
+    score near a threshold (``near_a_threshold``; flips across those are
+    counted), and the exact rig's detections bit for bit.  Returns K4's
+    launches in the main path's run, its largest error and its times per
+    detector call."""
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
+    gc.collect()  # nothing captured before this phase's graphs is freed while they live
     directory = os.path.join(root, "frcnn_weights")
     variables = frcnn_weights()
     save_variables_npz(variables, os.path.join(directory, pretrained.WEIGHT_FILES["frcnn"]))
     config = {"evaluation": {"detector": "frcnn"},
               "tpu": {"pretrained_weights_dir": directory}}
     detector = make_detector(config)
-    model = detector.backend.model
+    backend = detector.backend
+    model = backend.model
     tensors = require_same_weights(model, frcnn.make_frcnn(load_variables_npz(
         os.path.join(directory, pretrained.WEIGHT_FILES["frcnn"])), device="cpu"), "frcnn")
-
     frames_np = tennis_frames(FRCNN_FRAMES)
-    centers = detector(frames_np[None])
-    require(centers.shape == (1, FRCNN_FRAMES, 2) and np.isfinite(centers).all(), centers)
-    frames = torch.as_tensor(frames_np, device="cuda")
-    input_size = frames.shape[1:3]
+
+    # 1. The main path: make_detector's player centres, the forward a
+    # captured graph; K4 counted from 0 around it.
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    backbone_ms, box_ms = [], []
-    for _ in range(FRCNN_TIMED_CALLS):
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        levels = model.features(frames)
-        torch.cuda.synchronize()
-        middle = time.perf_counter()
-        boxes, scores, labels = (t.cpu().numpy() for t in model.detect(levels, input_size))
-        end = time.perf_counter()
-        backbone_ms.append((middle - start) * 1e3 / FRCNN_FRAMES)
-        box_ms.append((end - middle) * 1e3 / FRCNN_FRAMES)
-        del levels
+    reset_launches()
+    centers = detector(frames_np[None])
+    torch.cuda.synchronize()
+    launches = nms_sweep.launches
+    require(launches == 3 and [p.captures for p in backend.programs.values()] == [1],
+            f"the detector launched K4 {launches} times in {len(backend.programs)} programs")
+    require(centers.shape == (1, FRCNN_FRAMES, 2) and np.isfinite(centers).all(), centers)
+
+    # 2. The graphed call (one copy in, one replay, three readbacks) and the
+    # eager one, bit for bit; profiled right after the graph's capture.
+    graphed_ms = synchronised_ms(lambda i: backend.detect(frames_np), FRCNN_TIMED_CALLS, warm=1)
+    before = nms_sweep.launches
+    boxes, scores, labels = graphed = backend.detect(frames_np)
+    per_call = nms_sweep.launches - before
+    graphed_activity = device_activity(lambda: backend.detect(frames_np))
+    transfers = host_transfers(lambda: backend.detect(frames_np))
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    require(per_call == 3 and transfers == 1 + 3,
+            f"a graphed call: {per_call} K4 launches, {transfers} synchronising transfers")
+    eager = frcnn.make_person_box_backend(variables, backend=graphs.Eager)
+    eager_ms = synchronised_ms(lambda i: eager.detect(frames_np), FRCNN_TIMED_CALLS, warm=1)
+    with NmsRows() as recorded:
+        require_same_outputs(graphed, eager.detect(frames_np), "the detector")
+    eager_activity = device_activity(lambda: eager.detect(frames_np))
+    require([tuple(r.shape[:2]) for r in recorded.rows] == [NMS_SHAPES[0], NMS_SHAPES[2],
+                                                            NMS_SHAPES[1]],
+            f"K4's sets {[tuple(r.shape) for r in recorded.rows]}")
     require(boxes.shape == (FRCNN_FRAMES, frcnn.DETECTIONS_PER_IMG, 4)
             and scores.shape == labels.shape == (FRCNN_FRAMES, frcnn.DETECTIONS_PER_IMG)
             and np.isfinite(boxes).all() and np.isfinite(scores).all(),
@@ -2574,26 +2831,74 @@ def detector_phase(root: str) -> None:
     person = int((scores > 0.8).sum())
     require(person > 0 and (labels[scores > 0] == frcnn.PERSON_LABEL).all()
             and (labels[scores <= 0] == -1).all(), f"{person} person boxes above 0.8")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model(frames)
+
+    # 3. Split: the backbone and FPN, then the box stages, eagerly and as
+    # graphs on static frames and static levels.
+    frames = torch.as_tensor(frames_np, device="cuda")
+    input_size = frames.shape[1:3]
+    backbone_ms, box_ms = [], []
+    for _ in range(FRCNN_TIMED_CALLS):
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    kernels = sum(e.count for e in events if not e.key.startswith("Memcpy"))
-    copies = sum(e.count for e in events if e.key.startswith("Memcpy"))
+        start = time.perf_counter()
+        levels = model.features(frames)
+        torch.cuda.synchronize()
+        middle = time.perf_counter()
+        model.detect(levels, input_size)
+        torch.cuda.synchronize()
+        backbone_ms.append((middle - start) * 1e3 / FRCNN_FRAMES)
+        box_ms.append((time.perf_counter() - middle) * 1e3 / FRCNN_FRAMES)
+    features = graphs.Program(lambda x: ((), model.features(x)), (), [frames], model,
+                              graphs.CudaGraph)
+    detect = graphs.Program(lambda *lv: ((), model.detect(lv, input_size)), (), levels, model,
+                            graphs.CudaGraph)
+    graphed_backbone_ms = [ms / FRCNN_FRAMES for ms in
+                           synchronised_ms(lambda i: features(), FRCNN_TIMED_CALLS, warm=1)]
+    graphed_box_ms = [ms / FRCNN_FRAMES for ms in
+                      synchronised_ms(lambda i: detect(), FRCNN_TIMED_CALLS, warm=1)]
+    require_same_outputs(tuple(graphs.to_numpy(t) for t in detect()), graphed,
+                         "the graphed box stages")
+    del features, detect, levels
+
+    # 4. K4 on the rows of the call, bit for bit, and its times per call.
+    nms_error = max(check_nms(rows, "detector") for rows in recorded.rows)
+    nms_times = {}
+    for rows in recorded.rows:
+        add_to(nms_times, "nms_sweep", nms_time(rows))
+    del recorded
+
+    # 5. TF32 off: a graph of its own, equal to the eager call.
     torch.backends.cudnn.allow_tf32 = False
-    _, scores_off, _ = model(frames)
+    off = backend.detect(frames_np)
+    require_same_outputs(off, eager.detect(frames_np), "the detector with TF32 off")
+    require(sorted(key[1:] for key in backend.programs) == [(False, False), (True, False)],
+            f"programs {list(backend.programs)}")
     torch.backends.cudnn.allow_tf32 = True
     emit(phase="detector", frames=FRCNN_FRAMES, input=[FRCNN_HEIGHT, FRCNN_WIDTH],
          transform=list(model.geometry(FRCNN_HEIGHT, FRCNN_WIDTH)[1:]), weights_tensors=tensors,
-         weights_bit_for_bit=True, backbone_ms_per_frame=statistics.median(backbone_ms),
+         weights_bit_for_bit=True, graphed_equals_eager=True, nms_launches_per_call=per_call,
+         graphed_ms_per_frame=statistics.median(graphed_ms) / FRCNN_FRAMES,
+         eager_ms_per_frame=statistics.median(eager_ms) / FRCNN_FRAMES,
+         graphed_ms_per_frame_all=[ms / FRCNN_FRAMES for ms in graphed_ms],
+         eager_ms_per_frame_all=[ms / FRCNN_FRAMES for ms in eager_ms],
+         backbone_ms_per_frame=statistics.median(backbone_ms),
          box_stage_ms_per_frame=statistics.median(box_ms), backbone_ms_all=backbone_ms,
-         box_stage_ms_all=box_ms, kernels_per_frame=kernels / FRCNN_FRAMES,
-         copies_per_frame=copies / FRCNN_FRAMES, peak_memory_gib=peak_gib,
-         person_boxes_above_0_8_tf32_on=person,
-         person_boxes_above_0_8_tf32_off=int((scores_off > 0.8).sum().item()),
-         detections_above_0_05=int((scores > 0).sum()), player_centers=centers[0].tolist())
-    del model, detector, frames
+         box_stage_ms_all=box_ms,
+         graphed_backbone_ms_per_frame=statistics.median(graphed_backbone_ms),
+         graphed_box_stage_ms_per_frame=statistics.median(graphed_box_ms),
+         graphed_box_stage_ms_all=graphed_box_ms,
+         graphed_kernels_per_frame=graphed_activity["kernels"] / FRCNN_FRAMES,
+         eager_kernels_per_frame=eager_activity["kernels"] / FRCNN_FRAMES,
+         graphed_host_transfers_per_call=transfers,
+         graphed_copies_per_call=graphed_activity["copies"],
+         eager_copies_per_call=eager_activity["copies"],
+         graphed_busy_ms_per_frame=graphed_activity["busy_ms"] / FRCNN_FRAMES,
+         graphed_top_per_call=graphed_activity["top"],
+         eager_busy_ms_per_frame=eager_activity["busy_ms"] / FRCNN_FRAMES,
+         peak_memory_gib=peak_gib, person_boxes_above_0_8_tf32_on=person,
+         person_boxes_above_0_8_tf32_off=int((off[1] > 0.8).sum()),
+         detections_above_0_05=int((scores > 0).sum()), player_centers=centers[0].tolist(),
+         nms_max_abs_err=nms_error, nms_per_call=nms_times["nms_sweep"], card=nvidia_smi())
+    del model, detector, backend, eager, frames
 
     # f32 with TF32 off, the card against the CPU, at the reduced transform.
     torch.backends.cudnn.allow_tf32 = False
@@ -2634,6 +2939,7 @@ def detector_phase(root: str) -> None:
     emit(phase="detector_parity", dtype="f32", tf32=False, frames=FRCNN_PARITY_FRAMES,
          transform=list(FRCNN_PARITY_RESIZE), score_atol=FRCNN_SCORE_ATOL,
          box_atol=FRCNN_BOX_ATOL, **report)
+    return dict(launches=launches, max_abs_err=nms_error, times=nms_times["nms_sweep"])
 
 
 # Phase 15, data-parallel training: BAIR's loop config (``loop_config``)
@@ -3743,6 +4049,7 @@ def main() -> None:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errors = check_kernels(gen)
+    nms_error = check_nms_kernel(gen)
     check_gate_autograd(gen)
 
     rng = np.random.default_rng(SEED)
@@ -3773,7 +4080,7 @@ def main() -> None:
         after_launches, eval_config, pair = after_training(root)
         distribution_metrics(root, eval_config, pair)
         soak_launches = convergence_soak_phase(root, gen)
-        detector_phase(root)
+        detector = detector_phase(root)
         parallel_launches, phase15 = data_parallel_phase(root)
         tensor_parallel_launches = tensor_parallel_phase(root, phase15)
         tools_launches = tools_phase(root, loop_step_ms)
@@ -3793,6 +4100,15 @@ def main() -> None:
                     plain_ms=sums[name]["plain_ms"], bound_ms=sums[name]["bound_ms"],
                     bound_by=sums[name]["bound_by"], library_ms=None)
                for name, (source, replaces) in KERNELS.items()]
+    # K4's times are per 16-frame detector call (its three launches), its
+    # launches those of phase 14's main path; no PyTorch call computes the
+    # sweep (torchvision's nms is not on the card's machine, and it is not
+    # a masked sweep of packed rows).
+    kernels.append(dict(NMS_KERNEL, route="cuda", launches=detector["launches"],
+                        max_abs_err=max(nms_error, detector["max_abs_err"]),
+                        **{key: detector["times"][key]
+                           for key in ("ms", "cold_ms", "plain_ms", "bound_ms", "bound_by")},
+                        library_ms=None))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,7 +4,9 @@ dataset pair.
 Counterpart of ``playablevideogeneration_tpu/evaluation/dataset_evaluator.py``.
 Per batch of the two datasets, zipped: the per-observation MSE,
 motion-masked MSE, PSNR, SSIM, VGG cosine similarity and, with its
-weights, LPIPS, on the device in f32 without gradients and read back once;
+weights, LPIPS, on the device in f32 without gradients and read back once
+(on a CUDA device the replay of one captured graph per batch shape, the
+counterpart of the JAX evaluator's ``jax.jit``);
 then, on the host, the detections, the movements between successful
 detections paired with the generated frames' inferred actions.  At the
 end: per-position statistics, the detection metric, the action-space
@@ -19,10 +21,12 @@ from the reference videos' metadata, no detection metric).
 """
 from __future__ import annotations
 
+import weakref
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from playablevideogeneration_tpu_torch.data.loader import DataLoader
 from playablevideogeneration_tpu_torch.evaluation.metrics import frame_metrics
@@ -39,6 +43,7 @@ from playablevideogeneration_tpu_torch.evaluation.metrics.detection import (
 from playablevideogeneration_tpu_torch.evaluation.metrics.fid import compute_fid
 from playablevideogeneration_tpu_torch.evaluation.metrics.fvd import compute_fvd
 from playablevideogeneration_tpu_torch.evaluation.metrics.inception import inception_score
+from playablevideogeneration_tpu_torch.inference import graphs
 from playablevideogeneration_tpu_torch.utils.device import DeviceLike, resolve_device
 from playablevideogeneration_tpu_torch.utils.logging import Logger
 from playablevideogeneration_tpu_torch.utils.pretrained import make_metric_vgg
@@ -84,7 +89,8 @@ class DatasetEvaluator:
     :param vgg_variables: the converted VGG19 weights (a variables tree);
         None uses seeded random weights and records ``vgg_sim_note``
     :param lpips_fn: (B, T, H, W, 3) pair -> (B, T) on ``device``
-        (``metrics.lpips.make_lpips_fn``); None records ``lpips_unavailable``
+        (``metrics.lpips.make_lpips_fn``), its network its ``vgg``; None
+        records ``lpips_unavailable``
     :param detector: the movement detector; by default the config's
         ``evaluation.detector``
     :param fid_extractor: (N, H, W, 3) frames -> (N, D) numpy activations
@@ -97,6 +103,9 @@ class DatasetEvaluator:
         used when ``evaluation.compute_inception_score`` is set; None then
         records ``inception_score_unavailable``
     :param device: where the frame metrics run (default: cuda)
+    :param backend: for the tests and the chip check only: the frame
+        metrics' ``graphs.StandIn`` or ``graphs.Eager``; by default the
+        device decides (``graphs.resolve_backend``)
     """
 
     # Whether the protocol compares the reference's and the generated
@@ -108,7 +117,8 @@ class DatasetEvaluator:
                  vgg_variables: Optional[Dict] = None, lpips_fn=None,
                  fid_extractor=None, fvd_embedder=None,
                  detector: Optional[TennisPlayerDetector] = None,
-                 class_probability_fn=None, device: DeviceLike = "cuda"):
+                 class_probability_fn=None, device: DeviceLike = "cuda",
+                 backend: Optional[type] = None):
         self.config = config
         self.logger = logger
         self.device = resolve_device(device)
@@ -131,22 +141,34 @@ class DatasetEvaluator:
         self.compute_is = bool(config["evaluation"].get("compute_inception_score", False))
         self.detector = (make_detector(config, self.device) if detector is None
                          else detector)
+        # The frame metrics' program watches both networks for weight
+        # updates, and holds the evaluator through a weak reference.
+        evaluator = weakref.proxy(self)
+        networks = nn.ModuleList([self.vgg] + [
+            net for net in [getattr(lpips_fn, "vgg", None)] if net is not None]).eval()
+        self._frame_metrics = graphs.replayed(
+            lambda ref, gen: evaluator._frame_metric_values(ref, gen), networks, self.device,
+            backend)
 
     @torch.no_grad()
+    def _frame_metric_values(self, ref: torch.Tensor, gen: torch.Tensor) -> torch.Tensor:
+        """The (metrics, B, T) per-observation metrics of a batch pair on
+        the device, in ``_FRAME_METRICS`` order and then LPIPS."""
+        values = [frame_metrics.mse(ref, gen), frame_metrics.motion_masked_mse(ref, gen),
+                  frame_metrics.psnr(ref, gen), frame_metrics.ssim(ref, gen),
+                  frame_metrics.vgg_cosine_similarity(self.vgg, ref, gen)]
+        if self.lpips_fn is not None:
+            values.append(self.lpips_fn(ref, gen))
+        return torch.stack(values)
+
     def _compute_frame_metrics(self, reference: np.ndarray, generated: np.ndarray
                                ) -> Dict[str, np.ndarray]:
         """The batch's (B, T) per-observation metrics, computed on the
         device in f32 and read back in one transfer."""
-        ref = torch.as_tensor(reference, device=self.device, dtype=torch.float32)
-        gen = torch.as_tensor(generated, device=self.device, dtype=torch.float32)
-        values = [frame_metrics.mse(ref, gen), frame_metrics.motion_masked_mse(ref, gen),
-                  frame_metrics.psnr(ref, gen), frame_metrics.ssim(ref, gen),
-                  frame_metrics.vgg_cosine_similarity(self.vgg, ref, gen)]
-        names = list(_FRAME_METRICS)
-        if self.lpips_fn is not None:
-            values.append(self.lpips_fn(ref, gen))
-            names.append("lpips")
-        return dict(zip(names, torch.stack(values).cpu().numpy()))
+        ref, gen = (torch.from_numpy(np.ascontiguousarray(np.asarray(x, np.float32)))
+                    for x in (reference, generated))
+        names = list(_FRAME_METRICS) + ["lpips"] * (self.lpips_fn is not None)
+        return dict(zip(names, graphs.to_numpy(self._frame_metrics(ref, gen))))
 
     def compute_detections(self, observations: np.ndarray, batch) -> np.ndarray:
         """(B, T, H, W, C) -> (B, T, D) detections, -1 where none."""

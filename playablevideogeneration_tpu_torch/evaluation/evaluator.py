@@ -23,7 +23,6 @@ replay.  On the CPU the batch runs eagerly.
 """
 from __future__ import annotations
 
-import collections
 import contextlib
 import os
 import weakref
@@ -52,7 +51,7 @@ _SCALARS = ("observations_loss/avg", "perceptual_loss/avg", "states_loss/avg", "
             "samples_entropy", "action_distribution_entropy", "action_directions_kl_loss",
             "action_mutual_information_loss")
 # The captured batches kept, as the JAX evaluator keeps its jitted forwards.
-PROGRAMS = 6
+PROGRAMS = graphs.PROGRAMS
 
 
 def _nhwc(x: torch.Tensor) -> np.ndarray:
@@ -116,9 +115,8 @@ class Evaluator:
         self.vgg = vgg
         self.generator = torch.Generator(device=self.device)
         self._backend = graphs.resolve_backend(self.device, backend)
-        # (action sampler, B, T) -> graphs.Program, the least recently used first
-        self._programs: "collections.OrderedDict[tuple, graphs.Program]" = \
-            collections.OrderedDict()
+        # (action sampler, B, T) -> graphs.Program
+        self._programs = graphs.ProgramCache(PROGRAMS)
 
     def set_action_sampler(self, action_sampler: Optional[ActionSampler],
                            label: Optional[str] = None) -> None:
@@ -176,19 +174,14 @@ class Evaluator:
         outputs are static: the next batch overwrites them."""
         if self._backend is None:
             return self._eager_batch(observations, actions)
-        key = (self.action_sampler, *observations.shape[:2])
-        program = self._programs.get(key)
-        if program is not None and program.model is self.model:
-            self._programs.move_to_end(key)
-        else:
-            self._programs.pop(key, None)
-            while len(self._programs) >= PROGRAMS:
-                self._programs.popitem(last=False)
-            evaluator = weakref.proxy(self)  # the program must not hold its owner
-            program = self._programs[key] = graphs.Program(
+        evaluator = weakref.proxy(self)  # the program must not hold its owner
+        program = self._programs.program(
+            (self.action_sampler, *observations.shape[:2]),
+            lambda: graphs.Program(
                 lambda obs, acts: ((), evaluator._eager_batch(obs, acts)), (),
                 [observations.clone(), actions.clone()], self.model, self._backend,
-                generators=(self.generator,))
+                generators=(self.generator,)),
+            current=lambda program: program.model is self.model)
         return program(observations, actions)
 
     def evaluate(self, step: int, save_images: bool = True) -> Dict[str, float]:

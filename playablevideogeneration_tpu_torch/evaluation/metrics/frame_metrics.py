@@ -13,6 +13,8 @@ window is a depthwise ``F.conv2d``.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -63,13 +65,20 @@ def _gaussian_kernel(size: int = 11, sigma: float = 1.5) -> torch.Tensor:
     return torch.outer(g, g)
 
 
+@functools.lru_cache(maxsize=None)
+def _window(channels: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """SSIM's depthwise window on ``device``, made there once: a captured
+    program must not copy it from the host at every call."""
+    return _gaussian_kernel().to(device, dtype).expand(channels, 1, -1, -1)
+
+
 def ssim(reference: torch.Tensor, generated: torch.Tensor,
          data_range: float = 1.0) -> torch.Tensor:
     """(B, T, H, W, C) pair -> (B, T) per-observation SSIM."""
     b, t = reference.shape[:2]
     x, y = frames_nchw(reference), frames_nchw(generated)
     c = x.shape[1]
-    window = _gaussian_kernel().to(x.device, x.dtype).expand(c, 1, -1, -1)
+    window = _window(c, x.device, x.dtype)
 
     def filtered(z):
         return F.conv2d(z, window, groups=c)

@@ -22,12 +22,22 @@ detections.
 The ResNet50-FPN, the RPN head and the box head run batched over a
 sequence's frames on the device.  Ties in a top-k or in NMS's score order
 go to the lower index, as ``jax.lax.top_k`` and the stable ``jnp.argsort``
-break them (a stable descending sort).  The greedy NMS sweep runs on the
-host: the device computes the score-sorted IoU > threshold matrix of
-every candidate set, packed 8 columns to a byte, and the host sweeps its
-rows in order (``nms_masks``): one round trip for the five RPN levels of
-all frames and one for the box stage.  Everything runs in f32 without
-gradients.
+break them (a stable descending sort).  The greedy NMS runs on the device,
+as the JAX package's ``lax.scan`` does: the score-sorted IoU > threshold
+matrix of every candidate set, packed to bits, then the sweep over its
+rows (``ops.cuda.nms_sweep``, a hand-written kernel on the card), one
+launch per set size (``nms_masks``): for the RPN one for the levels of
+1000 candidates of all frames and one for the smaller P6, and one for the
+box stage.  Everything runs in f32 without gradients.
+
+Nothing in the forward reads the host: the constants it needs (the
+ImageNet mean and standard deviation, the anchors) are made on the device
+once per device and level shapes and kept on the module.  So on a CUDA
+device ``make_person_box_backend`` replays the whole forward as one
+captured CUDA graph per (frames, height, width, TF32 switches)
+(``inference.graphs``), the counterpart of the JAX package's ``jax.jit``
+of the detector: one copy of the frames in, the boxes, scores and labels
+out.
 """
 from __future__ import annotations
 
@@ -39,6 +49,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from playablevideogeneration_tpu_torch.inference import graphs
+from playablevideogeneration_tpu_torch.ops.cuda.nms_sweep import nms_sweep
 from playablevideogeneration_tpu_torch.utils.device import DeviceLike
 from playablevideogeneration_tpu_torch.utils.jax_weights import build_from_jax_variables
 from playablevideogeneration_tpu_torch.utils.tensor_ops import resize_bilinear
@@ -301,28 +313,16 @@ def _gather_rows(x: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
 def _packed_suppression(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The score order (stable, descending) of (..., n) candidates and the
-    (..., n, ceil(n / 8)) uint8 rows of their sorted IoU > threshold
-    matrix, column j in bit j % 8 of byte j // 8."""
+    (..., n, 4 ceil(n / 32)) uint8 rows of their sorted IoU > threshold
+    matrix, column j in bit j % 8 of byte j // 8: each row a whole number
+    of little-endian 32-bit words, as ``ops.cuda.nms_sweep`` reads them."""
     order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
     ordered = _gather_rows(boxes, order)
     over = (box_iou(ordered, ordered) > iou_threshold).to(torch.uint8)
-    over = F.pad(over, (0, -over.shape[-1] % 8))
+    over = F.pad(over, (0, -over.shape[-1] % 32))
     bits = (1 << torch.arange(8, device=over.device)).to(torch.uint8)
     packed = (over.view(*over.shape[:-1], -1, 8) * bits).sum(-1, dtype=torch.uint8)
     return order, packed
-
-
-def _sweep(packed: np.ndarray) -> np.ndarray:
-    """Greedy NMS over one score-sorted set: candidate i is kept unless a
-    kept candidate before it overlaps it above the threshold (its row's
-    bit i).  packed: (n, ceil(n / 8)) uint8; returns (n,) bool."""
-    keep = np.zeros(packed.shape[0], bool)
-    suppressed = 0
-    for i, row in enumerate(packed):
-        if not suppressed >> i & 1:
-            keep[i] = True
-            suppressed |= int.from_bytes(row.tobytes(), "little")
-    return keep
 
 
 def nms_masks(candidates: Sequence[Tuple[torch.Tensor, torch.Tensor]], iou_threshold: float
@@ -330,17 +330,21 @@ def nms_masks(candidates: Sequence[Tuple[torch.Tensor, torch.Tensor]], iou_thres
     """Greedy NMS keep-masks of several candidate sets, each boxes (...,
     n, 4) and scores (..., n), with static shapes: the keep-masks (...,
     n) over the inputs, semantically ``torchvision.ops.nms`` (the JAX
-    package's ``nms_mask`` scan).  The device computes each set's packed
-    IoU rows; the host sweeps them, with one transfer each way."""
-    prepared = [_packed_suppression(b, s, iou_threshold) for b, s in candidates]
-    keeps = []
-    for order, packed in prepared:
-        host = packed.cpu().numpy()
+    package's ``nms_mask`` scan).  The sets of one shape are stacked and
+    swept by one ``nms_sweep``; nothing goes to the host."""
+    groups: Dict[Tuple[int, ...], List[int]] = {}
+    for index, (boxes, _) in enumerate(candidates):
+        groups.setdefault(tuple(boxes.shape), []).append(index)
+    keeps: List[Optional[torch.Tensor]] = [None] * len(candidates)
+    for members in groups.values():
+        order, packed = _packed_suppression(torch.stack([candidates[i][0] for i in members]),
+                                            torch.stack([candidates[i][1] for i in members]),
+                                            iou_threshold)
         n = order.shape[-1]
-        flat = host.reshape(-1, n, host.shape[-1])
-        keep_sorted = np.stack([_sweep(rows) for rows in flat]).reshape(order.shape)
-        keep_sorted = torch.from_numpy(keep_sorted).to(order.device)
-        keeps.append(torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted))
+        keep_sorted = nms_sweep(packed.reshape(-1, n, packed.shape[-1])).reshape(order.shape)
+        keep = torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)
+        for member, mask in zip(members, keep):
+            keeps[member] = mask
     return keeps
 
 
@@ -441,12 +445,24 @@ def multiscale_roi_align(levels: Sequence[torch.Tensor], boxes: torch.Tensor,
     computes every level and selects by a one-hot sum, which adds exact
     zeros: the same values."""
     level = fpn_level_assignment(boxes, len(levels))
-    sizes = torch.tensor([[f.shape[-2], f.shape[-1]] for f in levels], device=boxes.device)
-    starts = torch.cumsum(sizes[:, 0] * sizes[:, 1], 0) - sizes[:, 0] * sizes[:, 1]
-    scales = torch.tensor([1.0 / s for s in strides], dtype=torch.float32, device=boxes.device)
+    heights = [f.shape[-2] for f in levels]
+    widths = [f.shape[-1] for f in levels]
+    starts = np.cumsum([0] + [h * w for h, w in zip(heights, widths)])[:-1].tolist()
     flat = torch.cat([f.reshape(f.shape[0], -1) for f in levels], dim=1)
-    return _roi_align_at(flat, starts[level], sizes[level, 0], sizes[level, 1], boxes,
-                         scales[level], ROI_SIZE, 2)
+    return _roi_align_at(flat, _per_level(level, starts, torch.long),
+                         _per_level(level, heights, torch.long),
+                         _per_level(level, widths, torch.long), boxes,
+                         _per_level(level, [1.0 / s for s in strides], torch.float32),
+                         ROI_SIZE, 2)
+
+
+def _per_level(level: torch.Tensor, values: Sequence, dtype: torch.dtype) -> torch.Tensor:
+    """``values[level]``, each value filled in on the device: no tensor is
+    made from host data."""
+    out = torch.full(level.shape, values[0], dtype=dtype, device=level.device)
+    for index, value in enumerate(values[1:], 1):
+        out = out.masked_fill(level == index, value)
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -465,6 +481,8 @@ class FasterRCNN(nn.Module):
     def __init__(self, min_size: int = MIN_SIZE, max_size: int = MAX_SIZE):
         super().__init__()
         self.min_size, self.max_size = min_size, max_size
+        # Constants made on a device once: (name, ..., device) -> tensors.
+        self._constants: Dict[tuple, object] = {}
         self.body = ResNet50()
         self.fpn = FPN()
         self.rpn_head = RPNHead()
@@ -475,12 +493,21 @@ class FasterRCNN(nn.Module):
         scale = min(self.min_size / min(height, width), self.max_size / max(height, width))
         return scale, int(round(height * scale)), int(round(width * scale))
 
+    def _constant(self, key: tuple, make: Callable[[], object]):
+        """``make()``'s tensors, made once per ``key`` (which names the
+        device): a captured forward must not copy from the host."""
+        value = self._constants.get(key)
+        if value is None:
+            value = self._constants[key] = make()
+        return value
+
     def transform(self, images: torch.Tensor) -> torch.Tensor:
         """(N, H, W, 3) in [0, 1] -> the normalised, resized frames padded
         to a multiple of 32, (N, 3, H', W')."""
         _, new_h, new_w = self.geometry(images.shape[1], images.shape[2])
-        mean = torch.tensor(IMAGENET_MEAN, device=images.device)
-        std = torch.tensor(IMAGENET_STD, device=images.device)
+        mean, std = self._constant(("normalisation", images.device), lambda: (
+            torch.tensor(IMAGENET_MEAN, device=images.device),
+            torch.tensor(IMAGENET_STD, device=images.device)))
         x = ((images - mean) / std).permute(0, 3, 1, 2)
         x = resize_bilinear(x, new_h, new_w)
         return F.pad(x, (0, -new_w % 32, 0, -new_h % 32))
@@ -496,14 +523,16 @@ class FasterRCNN(nn.Module):
         survived: per level the best anchors, decoded and clipped, NMS;
         then the best over all levels."""
         n = levels[0].shape[0]
-        anchors = make_anchors([tuple(l.shape[-2:]) for l in levels], STRIDES)
+        shapes = tuple(tuple(l.shape[-2:]) for l in levels)
+        device = levels[0].device
+        anchors = self._constant(("anchors", shapes, device), lambda: [
+            torch.from_numpy(a).to(device) for a in make_anchors(shapes, STRIDES)])
         candidates, valid_masks = [], []
         for level, anchor in zip(levels, anchors):
             logits, deltas = self.rpn_head(level)
             scores = torch.sigmoid(logits.permute(0, 2, 3, 1).reshape(n, -1))
             deltas = deltas.permute(0, 2, 3, 1).reshape(n, -1, 4)
             top_scores, top_idx = top_k(scores, min(RPN_PRE_NMS_TOPK, scores.shape[1]))
-            anchor = torch.from_numpy(anchor).to(level.device)
             boxes = decode_boxes(_gather_rows(deltas, top_idx), anchor[top_idx])
             boxes = clip_boxes(boxes, new_h, new_w)
             # Tiny boxes score 0 instead of being removed: torchvision's
@@ -700,24 +729,39 @@ def make_frcnn(variables: Dict, min_size: int = MIN_SIZE, max_size: int = MAX_SI
 
 def make_person_box_backend(variables: Dict, score_threshold: float = 0.8,
                             min_size: int = MIN_SIZE, max_size: int = MAX_SIZE,
-                            device: DeviceLike = "cuda") -> Callable[[np.ndarray], list]:
+                            device: DeviceLike = "cuda", backend: Optional[type] = None
+                            ) -> Callable[[np.ndarray], list]:
     """A (T, H, W, C) [0, 1] -> [[(x1, y1, x2, y2), ...] per frame] box
     proposer for ``TennisPlayerDetector`` (detection.py): the person boxes
     above ``score_threshold`` (0.8, the reference's,
     tennis_player_detector.py:17).  The detector is the returned
-    function's ``model``."""
-    model = make_frcnn(variables, min_size, max_size, device)
-    device = next(model.parameters()).device
+    function's ``model``; its ``detect`` gives the (boxes, scores, labels)
+    numpy arrays of a call.
 
-    def backend(frames: np.ndarray) -> list:
-        frames = torch.as_tensor(np.asarray(frames, np.float32)[..., :3], device=device)
-        boxes, scores, labels = (t.cpu().numpy() for t in model(frames))
+    On a CUDA device each call replays the captured forward of its (T, H,
+    W, TF32 switches), a ``graphs.ProgramCache`` of them: one copy of the
+    frames to the card, one replay, the three outputs read back.  On the
+    CPU it runs op by op.
+
+    :param backend: for the tests and the chip check only:
+        ``graphs.StandIn`` or ``graphs.Eager``; by default the device
+        decides (``graphs.resolve_backend``)"""
+    model = make_frcnn(variables, min_size, max_size, device)
+    forward = graphs.replayed(model, model, next(model.parameters()).device, backend)
+
+    def detect(frames: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        frames = np.ascontiguousarray(np.asarray(frames, np.float32)[..., :3])
+        return tuple(graphs.to_numpy(t) for t in forward(torch.from_numpy(frames)))
+
+    def person_boxes(frames: np.ndarray) -> list:
+        boxes, scores, labels = detect(frames)
         return [[tuple(float(v) for v in boxes[t, i]) for i in range(boxes.shape[1])
                  if scores[t, i] > score_threshold and labels[t, i] == PERSON_LABEL]
                 for t in range(boxes.shape[0])]
 
-    backend.model = model
-    return backend
+    person_boxes.model, person_boxes.detect, person_boxes.programs = (
+        model, detect, forward.programs)
+    return person_boxes
 
 
 def frcnn_backend_from_config(config, device: DeviceLike = "cuda"):

@@ -13,12 +13,13 @@ max((ceil(n / s) - 1) * s + k - n, 0), its smaller half in front, so a
 stride-2 layer pads unevenly; the pools pad with -inf.  The submodules
 carry the Flax names, so ``utils.jax_weights.load_jax_variables`` loads
 the ``i3d.npz`` that ``tools/convert_weights.py`` writes (3-D kernels
-``(kd, kh, kw, in, out)``).  Everything runs in f32 without gradients.
+``(kd, kh, kw, in, out)``).  Everything runs in f32 without gradients;
+on a CUDA device the embedder replays a captured graph per input shape.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from playablevideogeneration_tpu_torch.evaluation.metrics.inception import FrozenBatchNorm
+from playablevideogeneration_tpu_torch.inference import graphs
 from playablevideogeneration_tpu_torch.utils.device import DeviceLike
 from playablevideogeneration_tpu_torch.utils.jax_weights import (
     build_from_jax_variables,
@@ -143,20 +145,27 @@ def make_i3d(variables: Dict, device: DeviceLike = "cuda") -> I3D:
     return build_from_jax_variables(I3D, variables, device)
 
 
-def make_fvd_embedder(variables: Dict, device: DeviceLike = "cuda"
-                      ) -> Callable[[np.ndarray], np.ndarray]:
+def make_fvd_embedder(variables: Dict, device: DeviceLike = "cuda",
+                      backend: Optional[type] = None) -> Callable[[np.ndarray], np.ndarray]:
     """(N, T, H, W, 3) videos in [0, 1] -> (N, 400) numpy embeddings,
-    computed on ``device`` and read back once per call.  The backbone is
+    computed on ``device`` and read back once per call: on a CUDA device
+    the replay of a captured graph per (N, T, H, W, TF32 switches), as the
+    JAX package's ``jax.jit`` traces per shape (``graphs.replayed``; its
+    ``backend`` seam for the tests and the chip check).  The backbone is
     the returned function's ``model``."""
     model = make_i3d(variables, device)
-    target = next(model.parameters()).device
 
     @torch.no_grad()
-    def embed(videos) -> np.ndarray:
-        x = torch.as_tensor(np.asarray(videos, np.float32), device=target)
-        return model(x.permute(0, 1, 4, 2, 3)).cpu().numpy()
+    def embeddings(x: torch.Tensor) -> torch.Tensor:
+        return model(x.permute(0, 1, 4, 2, 3))
 
-    embed.model = model
+    forward = graphs.replayed(embeddings, model, next(model.parameters()).device, backend)
+
+    def embed(videos) -> np.ndarray:
+        x = torch.from_numpy(np.ascontiguousarray(np.asarray(videos, np.float32)))
+        return graphs.to_numpy(forward(x))
+
+    embed.model, embed.programs = model, forward.programs
     return embed
 
 

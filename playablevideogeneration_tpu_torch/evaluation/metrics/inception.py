@@ -12,7 +12,8 @@ The submodules carry the Flax names (``Mixed_5b.branch1x1.conv`` ...), so
 ``utils.jax_weights.load_jax_variables`` loads the ``fid_inception.npz``
 that ``tools/convert_weights.py`` writes.  The converted file keeps the
 1008-way classifier head ``fc`` for the Inception Score; FID ignores it.
-Everything runs in f32 without gradients.
+Everything runs in f32 without gradients; on a CUDA device the extractor
+and the classifier replay a captured graph per input shape.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from playablevideogeneration_tpu_torch.inference import graphs
 from playablevideogeneration_tpu_torch.utils.device import DeviceLike
 from playablevideogeneration_tpu_torch.utils.jax_weights import (
     build_from_jax_variables,
@@ -228,25 +230,31 @@ def make_inception(variables: Dict, device: DeviceLike = "cuda") -> InceptionV3F
     return build_from_jax_variables(InceptionV3FID, _split_head(variables)[0], device)
 
 
-def _frames(model: nn.Module, frames) -> torch.Tensor:
-    """(N, H, W, 3) numpy frames -> an f32 (N, 3, H, W) tensor on the model's device."""
-    device = next(model.parameters()).device
-    x = torch.as_tensor(np.asarray(frames, np.float32), device=device)
-    return x.permute(0, 3, 1, 2)
+def _on_host(frames) -> torch.Tensor:
+    """(N, H, W, 3) numpy frames as an f32 CPU tensor."""
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(frames, np.float32)))
 
 
-def make_fid_extractor(variables: Dict, device: DeviceLike = "cuda"
-                       ) -> Callable[[np.ndarray], np.ndarray]:
+def make_fid_extractor(variables: Dict, device: DeviceLike = "cuda",
+                       backend: Optional[type] = None) -> Callable[[np.ndarray], np.ndarray]:
     """(N, H, W, 3) frames in [0, 1] -> (N, 2048) numpy features, computed
-    on ``device`` and read back once per call.  The backbone is the
-    returned function's ``model``."""
+    on ``device`` and read back once per call: on a CUDA device the replay
+    of a captured graph per (N, H, W, TF32 switches), as the JAX
+    package's ``jax.jit`` traces per shape (``graphs.replayed``; its
+    ``backend`` seam for the tests and the chip check).  The backbone is
+    the returned function's ``model``."""
     model = make_inception(variables, device)
 
     @torch.no_grad()
-    def extract(frames) -> np.ndarray:
-        return model(_frames(model, frames)).cpu().numpy()
+    def features(x: torch.Tensor) -> torch.Tensor:
+        return model(x.permute(0, 3, 1, 2))
 
-    extract.model = model
+    forward = graphs.replayed(features, model, next(model.parameters()).device, backend)
+
+    def extract(frames) -> np.ndarray:
+        return graphs.to_numpy(forward(_on_host(frames)))
+
+    extract.model, extract.programs = model, forward.programs
     return extract
 
 
@@ -266,12 +274,13 @@ def random_inception_variables(seed: int, with_fc: bool = True) -> Dict:
 # --------------------------------------------------------------------- #
 
 
-def make_class_probability_fn(variables: Dict, device: DeviceLike = "cuda"
+def make_class_probability_fn(variables: Dict, device: DeviceLike = "cuda",
+                              backend: Optional[type] = None
                               ) -> Callable[[np.ndarray], np.ndarray]:
     """(N, H, W, 3) frames in [0, 1] -> (N, classes) numpy softmax class
     probabilities: the pool3 features through the checkpoint's ``fc``
-    head.  The backbone and the head are the returned function's
-    ``model`` and ``head``."""
+    head, replayed as ``make_fid_extractor``'s features are.  The backbone
+    and the head are the returned function's ``model`` and ``head``."""
     backbone, fc = _split_head(variables)
     if fc is None:
         raise ValueError("Checkpoint has no classifier head ('fc') — "
@@ -281,10 +290,16 @@ def make_class_probability_fn(variables: Dict, device: DeviceLike = "cuda"
     head = build_from_jax_variables(lambda: nn.Linear(FEATURES, classes), {"params": fc}, device)
 
     @torch.no_grad()
-    def probs(frames) -> np.ndarray:
-        return torch.softmax(head(model(_frames(model, frames))), dim=-1).cpu().numpy()
+    def probabilities(x: torch.Tensor) -> torch.Tensor:
+        return torch.softmax(head(model(x.permute(0, 3, 1, 2))), dim=-1)
 
-    probs.model, probs.head = model, head
+    forward = graphs.replayed(probabilities, nn.ModuleList([model, head]).eval(),
+                              next(model.parameters()).device, backend)
+
+    def probs(frames) -> np.ndarray:
+        return graphs.to_numpy(forward(_on_host(frames)))
+
+    probs.model, probs.head, probs.programs = model, head, forward.programs
     return probs
 
 

@@ -37,6 +37,9 @@ def make_lpips_fn(vgg: Vgg19, linear_weights: Optional[List[np.ndarray]] = None
         runs on
     :param linear_weights: per level a (C,) array of head weights; None
         averages the squared differences over channels instead
+
+    The returned function's ``vgg`` is its network, which a captured
+    program of it watches for weight updates.
     """
     device = next(vgg.parameters()).device
     shift = torch.tensor(_SHIFT, device=device).view(1, 3, 1, 1)
@@ -59,6 +62,7 @@ def make_lpips_fn(vgg: Vgg19, linear_weights: Optional[List[np.ndarray]] = None
                 total = total + diff.mean(dim=(1, 2, 3))
         return total.reshape(b, t)
 
+    lpips.vgg = vgg
     return lpips
 
 

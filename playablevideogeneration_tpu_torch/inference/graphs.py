@@ -63,6 +63,13 @@ forward and backward, and the graph holds both.  It differs from a
   where they lie and casts them inside itself: their versions are not
   watched.
 
+A ``ProgramCache`` keeps one program per key, the least recently used
+evicted first, as ``jax.jit`` keeps one trace per shape: a new shape, or
+a new TF32 setting (``tf32_flags``: a graph replays the kernels and math
+modes chosen when it recorded), is a new key.  ``replayed`` makes a
+stateless function of host tensors, the offline evaluation's backbones
+and metrics, into such programs.
+
 ``CudaGraph`` records and replays.  ``StandIn``, the one test seam, calls
 ``fn`` on the same static buffers where the graph would replay, so that
 the CPU tests hold the buffer handling; ``backend_for`` never chooses it.
@@ -72,9 +79,10 @@ fallback on the card.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import itertools
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Hashable, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -86,10 +94,14 @@ from playablevideogeneration_tpu_torch.ops.cuda.convlstm_gates import (
 from playablevideogeneration_tpu_torch.ops.cuda.fused_norm_act import (
     fused_batch_norm_leaky_relu,
 )
+from playablevideogeneration_tpu_torch.ops.cuda.nms_sweep import nms_sweep
 
 # The kernel wrappers whose ``launches`` a program keeps.
-COUNTED = (fused_lstm_gates, fused_lstm_gates_bwd, fused_batch_norm_leaky_relu)
+COUNTED = (fused_lstm_gates, fused_lstm_gates_bwd, fused_batch_norm_leaky_relu, nms_sweep)
 WARMUP_CALLS = 2
+# The programs a ``ProgramCache`` keeps, as the JAX evaluator keeps its
+# jitted forwards.
+PROGRAMS = 6
 
 
 def leaves(tree) -> List[torch.Tensor]:
@@ -215,6 +227,13 @@ class Eager:
 def backend_for(device: torch.device) -> Optional[type]:
     """``CudaGraph`` on a CUDA device; ``None`` (eager) on the CPU."""
     return CudaGraph if torch.device(device).type == "cuda" else None
+
+
+def tf32_flags() -> Tuple[bool, bool]:
+    """cuDNN's and cuBLAS's TF32 switches, part of the key of a program
+    that runs f32 convolutions or products: a graph recorded with TF32 on
+    must not replay once it is off, nor the other way round."""
+    return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
 
 
 def resolve_backend(device: torch.device, backend: Optional[type]) -> Optional[type]:
@@ -345,3 +364,68 @@ class TrainProgram(Program):
     def _replayed(self) -> None:
         super()._replayed()
         torch.autograd.graph.increment_version(list(self.model.buffers()))
+
+
+class ProgramCache(collections.OrderedDict):
+    """Programs by key, the least recently used first; at most ``size``
+    (``PROGRAMS``) are kept."""
+
+    def __init__(self, size: int = PROGRAMS):
+        super().__init__()
+        self.size = size
+
+    def program(self, key: Hashable, make: Callable[[], Program],
+                current: Callable[[Program], bool] = lambda program: True) -> Program:
+        """The program of ``key`` if there is one and ``current`` holds for
+        it, else ``make()``'s, which takes its place; the least recently
+        used programs go first when the cache is full.  No reference to a
+        program that goes is left while the new one records: its graph and
+        pool are freed first."""
+        program = self.get(key)
+        if program is not None and current(program):
+            self.move_to_end(key)
+            return program
+        program = None
+        self.pop(key, None)
+        while len(self) >= self.size:
+            self.popitem(last=False)
+        self[key] = make()
+        return self[key]
+
+
+def to_numpy(tensor: torch.Tensor):
+    """``tensor`` read into a numpy array of its own: a program's static
+    output is overwritten by the next call, and on the CPU ``.numpy()``
+    would share its memory."""
+    return tensor.detach().to("cpu", copy=True).numpy()
+
+
+def replayed(fn: Callable, model: nn.Module, device: torch.device,
+             backend: Optional[type] = None) -> Callable:
+    """``fn(*inputs)``, pure, of tensors on ``device`` (a tensor or a tree
+    of them out; ``model`` the module it runs, watched for weight
+    updates), as a function of host tensors.  Without a backend
+    (``resolve_backend``: the CPU, or ``Eager``) it copies each input to
+    ``device`` and runs ``fn`` op by op; else it replays the ``Program`` of
+    the inputs' shapes and ``tf32_flags()`` from a ``ProgramCache`` (the
+    returned function's ``programs``), each input copied once into its
+    static input.  The outputs are then the static ones, which the next
+    call overwrites: read them first.  ``fn`` must not hold the owner of
+    the returned function (a weak reference does).  ``to_numpy`` reads an
+    output."""
+    device = torch.device(device)
+    graphed = resolve_backend(device, backend)
+    programs = ProgramCache()
+
+    def call(*values: torch.Tensor):
+        if graphed is None:
+            return fn(*(v.to(device) for v in values))
+        key = (tuple(tuple(v.shape) for v in values), *tf32_flags())
+        program = programs.program(key, lambda: Program(
+            lambda *inputs: ((), fn(*inputs)), (),
+            [torch.zeros(v.shape, dtype=v.dtype, device=device) for v in values], model,
+            graphed))
+        return program(*values)
+
+    call.programs = programs
+    return call
