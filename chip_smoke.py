@@ -1,7 +1,7 @@
 """Drives the PyTorch/CUDA port's play and training routes, its training
 loop, the entry points after training, the distribution metrics, the
-convergence soak, the Faster R-CNN detector (its NMS in K4, a hand-written
-sweep kernel), data- and tensor-parallel
+convergence soak, the Faster R-CNN detector (its NMS in K4, two
+hand-written kernels), data- and tensor-parallel
 training, the tools (the step profiler, the input-pipeline bench and the
 CLI soak), the graphed inference routes and the graphed training step and
 evaluation batch against eager ones, on one NVIDIA Hopper GPU.
@@ -32,9 +32,13 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    equal its plain version bit for bit, and each case must take the path
    it should (packs of 4 elements for K1 and K2 and of 16 bytes for K3,
    or one element per thread where the sizes or the alignment forbid
-   them); K4 (the NMS sweep) bit for bit at every set shape of a 16-frame
-   detector call (64 and 16 sets of 1000 candidates, 16 of 504), at 1, 33
-   and 999 candidates, and with every pair or no pair overlapping; and the
+   them); K4 (the NMS of score-sorted boxes: the packed IoU > threshold
+   rows, then the sweep) bit for bit at every set shape of a 16-frame
+   detector call (64 and 16 sets of 1000 candidates, 16 of 504), at 1,
+   33, 999 and 1024 candidates, at IoU thresholds 0.5 and 0.7, with every
+   pair or no pair overlapping and on pairs whose f32 IoU sits on the f32
+   threshold or a few ulps either side, and its sweep kernel alone on the
+   plain version's rows; and the
    gate update's autograd function (K1 forward, K2 backward) against
    autograd through the plain gate math (1e-5);
 4. play route: the bf16 flagship (configs/01_bair.yaml, seeded random
@@ -167,12 +171,15 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    file's bit for bit; 16 tennis-shaped 96x256 frames at the default
    800/1333 transform (500x1333, padded to 512x1344) give static, finite
    outputs and person boxes above 0.8, the forward one replayed graph
-   with 3 K4 launches, one copy in and three out; the same call op by op
-   (``graphs.Eager``) bit for bit; ms per frame both ways, whole and split
-   into the backbone and FPN and the box stages (as graphs on static
-   frames and levels), kernels and copies per frame, peak memory; K4 bit
-   for bit and timed on the call's own rows; person boxes with TF32 on
-   and off (a graph each, each equal to op by op); then f32 with TF32 off, the
+   with 6 K4 launches (2 per set shape), one copy in and three out; the
+   same call op by op (``graphs.Eager``) bit for bit; ms per frame both
+   ways, whole and split into the backbone and FPN and the box stages (as
+   graphs on static frames and levels), kernels and copies per frame,
+   peak memory; K4 bit for bit and timed on the call's own sorted boxes,
+   its two kernels apart; the NMS path per call (the score order, K4, and
+   the PyTorch passes that its mask kernel replaced) and its peak memory;
+   person boxes with TF32 on and off (a graph each, each equal to op by
+   op); then f32 with TF32 off, the
    card against the CPU at a 32/86 transform: the FPN levels within atol
    1e-4 * max(scale, 0.1) and rtol 1e-4, the detections within 1e-4
    (scores) and 1e-2 px (boxes) in every frame with no person score within
@@ -262,7 +269,7 @@ It prints JSON lines as it goes, then the kernels' summary line (``ms``,
 ``cold_ms``, ``plain_ms`` and ``bound_ms`` there are per step of the
 kernel's route: the sum over a bf16 play step's launches for K1 and K3,
 over a bf16 training step's 33 K2 launches for K2, over a 16-frame
-detector call's 3 launches for K4; ``launches`` counts phase 4's, 7's,
+detector call's 6 launches for K4; ``launches`` counts phase 4's, 7's,
 10's, 11's, 13's, 15's, 16's, 17's, 18's and 19's runs in this process
 for K1-K3, without the f32 parity checks and the soak's stage processes,
 and phase 14's main path for K4), the card's nvidia-smi line, and last
@@ -372,7 +379,14 @@ from playablevideogeneration_tpu_torch.ops.cuda.fused_norm_act import (
     _batch_norm_leaky_relu,
     fused_batch_norm_leaky_relu,
 )
-from playablevideogeneration_tpu_torch.ops.cuda.nms_sweep import _nms_sweep, nms_sweep
+from playablevideogeneration_tpu_torch.ops.cuda.nms_sweep import (
+    LAUNCHES_PER_CALL as NMS_LAUNCHES_PER_CALL,
+    _mask as nms_mask_kernel,
+    _nms_keep,
+    _packed_rows,
+    _sweep as nms_sweep_kernel,
+    nms_keep,
+)
 from playablevideogeneration_tpu_torch.parallel import mesh
 from playablevideogeneration_tpu_torch.tools import convergence_soak, gpu_soak, profile_step
 from playablevideogeneration_tpu_torch.tools.profile_step import breakdown
@@ -466,16 +480,23 @@ KERNELS = {
     "fused_norm_act": ("fused_norm_act",
                        "playablevideogeneration_tpu/ops/pallas/fused_norm_act.py:71"),
 }
-# K4, the greedy NMS sweep: it replaces no Pallas kernel but the lax.scan
-# of the JAX detector's nms_mask, inside its jax.jit.
-NMS_KERNEL = dict(name="nms_sweep",
+# K4, the greedy NMS of score-sorted boxes (two kernels: the packed IoU >
+# threshold rows, then the sweep): it replaces no Pallas kernel but the
+# JAX detector's nms_mask after its argsort (the IoU, the threshold and the
+# lax.scan), inside its jax.jit.
+NMS_KERNEL = dict(name="nms_keep",
                   source="playablevideogeneration_tpu_torch/ops/cuda/csrc/nms_sweep.cu",
                   replaces="playablevideogeneration_tpu/evaluation/metrics/frcnn.py:277")
-# K4's sets: a 16-frame detector call sweeps the four RPN levels of 1000
-# candidates of every frame in one launch, P6's 504 (8x21x3 anchors at
+# K4's sets: a 16-frame detector call takes the four RPN levels of 1000
+# candidates of every frame in one nms_keep, P6's 504 (8x21x3 anchors at
 # 512x1344) in another and the box stage's 1000 RoIs in a third.
 NMS_SHAPES = [(64, 1000), (16, 1000), (16, 504)]
-NMS_RAGGED = [(3, 1), (3, 33), (3, 999)]
+NMS_RAGGED = [(3, 1), (3, 33), (3, 999), (3, 1024)]
+NMS_THRESHOLDS = (0.5, 0.7)  # the box stage's and the RPN's
+# f32 operations per IoU of two boxes whose areas are known: 2 max and 2
+# min, 2 subtractions and 2 clamps for the intersection's sides, its
+# product, the union's add, subtract and clamp, the division, the compare.
+IOU_OPS = 14
 ROLLOUT_FRAMES = 64
 TIMED_STEPS = 60
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the
@@ -770,11 +791,31 @@ def check_kernels(gen) -> dict:
     return errors
 
 
-def nms_rows(sets: int, n: int, gen, overlap: str = "random") -> torch.Tensor:
-    """The packed IoU > 0.7 rows (``frcnn._packed_suppression``) of
-    ``sets`` seeded sets of ``n`` boxes on the card: random boxes of 2-40 px
-    over 200 px, or one box repeated ("all", every pair overlapping), or
-    boxes side by side ("none")."""
+def nms_boxes(sets: int, n: int, gen, overlap: str = "random",
+              threshold: float = 0.7) -> torch.Tensor:
+    """``sets`` seeded sets of ``n`` boxes on the card, taken as in score
+    order: random boxes of 2-40 px over 200 px; one box repeated ("all",
+    every pair overlapping); boxes side by side ("none"); or ("threshold")
+    a W x H box followed by boxes of width x inside it, x stepped an ulp
+    at a time around ``threshold`` * W, so that their f32 IoUs with the
+    first sit on the f32 threshold and a few hundred ulps either side (W, H
+    cycled per set; with n = 2 each set holds one such pair, x stepped
+    from set to set)."""
+    if overlap == "threshold":
+        sizes = [(w, h) for w in (1.0, 10.0, 37.0, 100.0, 640.0) for h in (1.0, 3.0, 7.5)]
+        wh = np.array([sizes[i % len(sizes)] for i in range(sets)], np.float32)
+        if n == 2:  # the sets of one size take consecutive steps
+            steps = (np.arange(sets) // len(sizes))[:, None]
+        else:
+            steps = np.tile(np.arange(n - 1), (sets, 1))
+        steps = steps - steps.max() // 2
+        middle = (np.float32(threshold) * wh[:, :1]).astype(np.float32)
+        x = (middle.view(np.int32) + steps.astype(np.int32)).view(np.float32)
+        boxes = np.zeros((sets, n, 4), np.float32)
+        boxes[:, 0, 2:] = wh
+        boxes[:, 1:, 2] = x
+        boxes[:, 1:, 3] = wh[:, 1:]
+        return torch.from_numpy(boxes).cuda()
     centres = torch.rand((sets, n, 2), generator=gen, device="cuda") * 200
     sizes = torch.rand((sets, n, 2), generator=gen, device="cuda") * 38 + 2
     boxes = torch.cat([centres - sizes / 2, centres + sizes / 2], -1)
@@ -783,66 +824,100 @@ def nms_rows(sets: int, n: int, gen, overlap: str = "random") -> torch.Tensor:
     elif overlap == "none":
         x = torch.arange(n, device="cuda", dtype=torch.float32) * 10
         boxes = torch.stack([x, x * 0, x + 5, x * 0 + 5], -1).expand(sets, n, 4).contiguous()
-    scores = torch.rand((sets, n), generator=gen, device="cuda")
-    return frcnn._packed_suppression(boxes, scores, frcnn.RPN_NMS_THRESH)[1]
+    return boxes
 
 
-def check_nms(rows: torch.Tensor, what: str) -> float:
-    """K4 on ``rows`` against its plain version, bit for bit (its output is
-    boolean); returns the largest difference (0)."""
-    got, want = nms_sweep(rows), _nms_sweep(rows)
+def plain_rows(boxes: torch.Tensor, threshold: float) -> torch.Tensor:
+    """The plain version's packed rows as K4's sweep kernel takes them:
+    int32 words, each row padded with zeros to a multiple of 4 words."""
+    rows = _packed_rows(boxes, threshold).view(torch.int32)
+    return torch.nn.functional.pad(rows, (0, -rows.shape[-1] % 4)).contiguous()
+
+
+def check_nms(boxes: torch.Tensor, threshold: float, what: str) -> float:
+    """K4 (both kernels) on ``boxes`` against its plain version, bit for
+    bit (its output is boolean), and its sweep kernel alone on the plain
+    version's packed rows (every word written); returns the number of
+    differing candidates (0)."""
+    got, want = nms_keep(boxes, threshold), _nms_keep(boxes, threshold)
+    swept = nms_sweep_kernel(plain_rows(boxes, threshold))
     torch.cuda.synchronize()
-    require(got.dtype == torch.bool and got.shape == want.shape and torch.equal(got, want),
-            f"nms_sweep {what} {tuple(rows.shape)} differs from its plain version")
+    require(got.dtype == torch.bool and got.shape == want.shape and torch.equal(got, want)
+            and torch.equal(swept, want),
+            f"nms_keep {what} {tuple(boxes.shape)} at {threshold} differs from its plain version")
     return float((got != want).sum().item())
 
 
 def check_nms_kernel(gen) -> float:
-    """Phase 3, K4 at every shape of a 16-frame detector call, at ragged
-    sizes and with every pair or no pair overlapping; returns the largest
-    error."""
+    """Phase 3, K4 at every set shape of a 16-frame detector call and at
+    ragged sizes, at both thresholds, with every pair or no pair
+    overlapping, and on boxes built to sit at the threshold; returns the
+    largest error."""
     err = 0.0
-    for (sets, n), overlap in ([(shape, "random") for shape in NMS_SHAPES + NMS_RAGGED]
-                               + [(NMS_SHAPES[1], "all"), (NMS_SHAPES[1], "none")]):
-        rows = nms_rows(sets, n, gen, overlap)
-        err = max(err, check_nms(rows, overlap))
-        kept = int(_nms_sweep(rows).sum().item())
+    cases = ([(shape, "random", t) for shape in NMS_SHAPES + NMS_RAGGED for t in NMS_THRESHOLDS]
+             + [(NMS_SHAPES[1], "all", 0.7), (NMS_SHAPES[1], "none", 0.7)]
+             + [(shape, "threshold", t) for shape in (NMS_SHAPES[1], (1000, 2))
+                for t in NMS_THRESHOLDS])
+    for (sets, n), overlap, threshold in cases:
+        boxes = nms_boxes(sets, n, gen, overlap, threshold)
+        err = max(err, check_nms(boxes, threshold, overlap))
+        kept = int(_nms_keep(boxes, threshold).sum().item())
         require(overlap != "all" or kept == sets, f"all overlapping: {kept} kept of {sets} sets")
         require(overlap != "none" or kept == sets * n, f"none overlapping: {kept} kept")
-        emit(phase="kernel_check", kernel="nms_sweep", shape=[sets, n, rows.shape[-1]],
-             overlap=overlap, kept=kept, dtype="bool", max_abs_err=err)
+        extra = {}
+        if overlap == "threshold":
+            # The f32 IoUs of the first box with the others against the f32
+            # threshold: on it (kept) and either side.
+            iou = frcnn.box_iou(boxes[:, :1], boxes[:, 1:])[:, 0]
+            t = torch.tensor(threshold, dtype=torch.float32, device="cuda")
+            extra = dict(on=int((iou == t).sum()), above=int((iou > t).sum()),
+                         below=int((iou < t).sum()))
+            require(extra["on"] > 0 and extra["above"] > 0 and extra["below"] > 0, extra)
+            if n == 2:
+                require(torch.equal(_nms_keep(boxes, threshold)[:, 1], iou[:, 0] <= t),
+                        "a pair at the threshold was kept or suppressed wrongly")
+        emit(phase="kernel_check", kernel="nms_keep", shape=[sets, n, 4], overlap=overlap,
+             threshold=threshold, kept=kept, dtype="f32", max_abs_err=err, **extra)
     return err
 
 
-def nms_time(rows: torch.Tensor) -> dict:
-    """K4's device time per launch on ``rows`` (one launch of a detector
-    call, recorded there), warm (back to back, in L2) and cold (rotating
-    over copies totalling COLD_BYTES), beside its bound and its plain
-    version's time.  The bound counts the bytes this input needs: the rows
-    of the kept candidates, the only rows the sweep must read, and the
-    mask written; its ``all_rows_bound_us`` counts every row.  The plain
-    version steps through the candidates with a few launches each, so its
-    time is one call's, between CUDA events, after a warm one."""
-    sets, n, width = rows.shape
-    kept = int(_nms_sweep(rows).sum().item())
-    bound, bound_by = bound_ms(kept * width + sets * n, kept * width // 4)
-    ms = device_ms(lambda: nms_sweep(rows))
-    copies = [rows] + [rows.clone() for _ in range(math.ceil(COLD_BYTES / rows.numel()))]
+def nms_time(boxes: torch.Tensor, threshold: float) -> dict:
+    """K4's device time per ``nms_keep`` on ``boxes`` (one set shape of a
+    detector call, recorded there), warm (back to back, in L2) and cold
+    (rotating over copies of the boxes totalling COLD_BYTES), and its two
+    kernels apart (warm), beside its bound and its plain version's time.
+    The bound is the larger of the bytes (the boxes read once, the mask
+    written once) and the operations (IOU_OPS for each pair i < j of a set
+    at the f32 rate); neither counts the sweep's chain of n dependent steps
+    per set.  The plain version builds the n x n IoU and steps through the
+    candidates with a few launches each, so its time is one call's,
+    between CUDA events, after a warm one."""
+    sets, n, _ = boxes.shape
+    kept = int(_nms_keep(boxes, threshold).sum().item())
+    bound, bound_by = bound_ms(boxes.numel() * 4 + sets * n,
+                               sets * n * (n - 1) // 2 * IOU_OPS)
+    ms = device_ms(lambda: nms_keep(boxes, threshold))
+    copies = [boxes] + [boxes.clone()
+                        for _ in range(math.ceil(COLD_BYTES / (boxes.numel() * 4)))]
     turn = itertools.cycle(copies)
-    cold_ms = device_ms(lambda: nms_sweep(next(turn)))
+    cold_ms = device_ms(lambda: nms_keep(next(turn), threshold))
     del copies, turn
-    _nms_sweep(rows)
+    rows = nms_mask_kernel(boxes, threshold)
+    mask_ms = device_ms(lambda: nms_mask_kernel(boxes, threshold))
+    sweep_ms = device_ms(lambda: nms_sweep_kernel(rows))
+    _nms_keep(boxes, threshold)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    _nms_sweep(rows)
+    _nms_keep(boxes, threshold)
     end.record()
     end.synchronize()
     plain_ms = start.elapsed_time(end)
-    emit(phase="kernel_time", kernel="nms_sweep", shape=[sets, n, width], kept=kept,
-         us=ms * 1e3, cold_us=cold_ms * 1e3, bound_us=bound * 1e3, bound_by=bound_by,
-         all_rows_bound_us=bound_ms(rows.numel() + sets * n, 0)[0] * 1e3,
+    emit(phase="kernel_time", kernel="nms_keep", shape=[sets, n, 4], threshold=threshold,
+         kept=kept, us=ms * 1e3, cold_us=cold_ms * 1e3, mask_us=mask_ms * 1e3,
+         sweep_us=sweep_ms * 1e3, bound_us=bound * 1e3, bound_by=bound_by,
          plain_us=plain_ms * 1e3, bound_share_cold=bound / cold_ms)
-    return dict(ms=ms, cold_ms=cold_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+    return dict(ms=ms, cold_ms=cold_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                mask_ms=mask_ms, sweep_ms=sweep_ms)
 
 
 def check_gate_autograd(gen) -> None:
@@ -1159,7 +1234,7 @@ def reset_launches() -> None:
     fused_lstm_gates.launches = 0
     fused_lstm_gates_bwd.launches = 0
     fused_batch_norm_leaky_relu.launches = 0
-    nms_sweep.launches = 0
+    nms_keep.launches = 0
 
 
 def read_launches() -> dict:
@@ -2702,24 +2777,87 @@ def detections_agree(card: tuple, cpu: tuple, frame: int) -> bool:
                 and np.abs(boxes - want_boxes).max() <= FRCNN_BOX_ATOL)
 
 
-class NmsRows:
-    """Within the block, a copy of the rows of every K4 call that the
-    detector module makes (run it eagerly: a replay calls no wrapper)."""
+class NmsCalls:
+    """Within the block, a copy of the candidates and threshold of every
+    ``nms_masks`` call that the detector module makes (run it eagerly)."""
 
     def __enter__(self):
-        self.rows = []
-        self._saved = frcnn.nms_sweep
-        saved, rows = self._saved, self.rows
+        self.calls = []
+        self._saved = frcnn.nms_masks
+        saved, calls = self._saved, self.calls
 
-        def recorded(packed):
-            rows.append(packed.clone())
-            return saved(packed)
+        def recorded(candidates, iou_threshold):
+            calls.append(([(b.clone(), s.clone()) for b, s in candidates], iou_threshold))
+            return saved(candidates, iou_threshold)
 
-        frcnn.nms_sweep = recorded
+        frcnn.nms_masks = recorded
         return self
 
     def __exit__(self, *exc_info):
-        frcnn.nms_sweep = self._saved
+        frcnn.nms_masks = self._saved
+
+
+def nms_groups(calls: list) -> list:
+    """The sets of the recorded ``nms_masks`` calls as each stacks them for
+    one ``nms_keep``: (boxes, scores, threshold) per set shape, in order."""
+    groups = []
+    for candidates, threshold in calls:
+        shapes = {}
+        for boxes, scores in candidates:
+            shapes.setdefault(tuple(boxes.shape), []).append((boxes, scores))
+        groups += [(torch.stack([b for b, _ in members]), torch.stack([s for _, s in members]),
+                    threshold) for members in shapes.values()]
+    return groups
+
+
+def sorted_boxes(boxes: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
+    """A group's boxes in score order, (sets, n, 4), as ``nms_masks`` gives
+    them to K4."""
+    ordered = frcnn._score_order(boxes, scores)[1]
+    return ordered.reshape(-1, ordered.shape[-2], 4)
+
+
+def nms_path_time(calls: list) -> dict:
+    """The detector's NMS on the candidates of one call, per call (the sum
+    over its ``nms_masks`` calls), in device ms behind a sleep kernel: the
+    whole ``nms_masks``; per set shape the score order (``_score_order``:
+    the sort and the gather), K4's mask kernel and its sweep kernel, and
+    the passes that the mask kernel replaced (the IoU, the threshold and
+    the packing in PyTorch, ``_packed_rows``) with the sweep kernel on
+    their rows; and the most memory each path held above what was
+    allocated before it."""
+    times = dict(whole_ms=sum(device_ms(lambda: frcnn.nms_masks(c, t), launches=5)
+                              for c, t in calls),
+                 order_ms=0.0, mask_ms=0.0, sweep_ms=0.0, plain_rows_ms=0.0,
+                 plain_rows_sweep_ms=0.0)
+    groups = nms_groups(calls)
+    for boxes, scores, threshold in groups:
+        times["order_ms"] += device_ms(lambda: frcnn._score_order(boxes, scores), launches=5)
+        ordered = sorted_boxes(boxes, scores)
+        times["mask_ms"] += device_ms(lambda: nms_mask_kernel(ordered, threshold), launches=5)
+        rows = nms_mask_kernel(ordered, threshold)
+        times["sweep_ms"] += device_ms(lambda: nms_sweep_kernel(rows), launches=5)
+        times["plain_rows_ms"] += device_ms(lambda: _packed_rows(ordered, threshold),
+                                            launches=5)
+        rows = plain_rows(ordered, threshold)
+        times["plain_rows_sweep_ms"] += device_ms(lambda: nms_sweep_kernel(rows), launches=5)
+        del rows
+    times["earlier_ms"] = times["order_ms"] + times["plain_rows_ms"] + times["plain_rows_sweep_ms"]
+
+    def peak_mib(path) -> float:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        path()
+        torch.cuda.synchronize()
+        return (torch.cuda.max_memory_allocated() - before) / 2 ** 20
+
+    times["peak_mib"] = peak_mib(lambda: [frcnn.nms_masks(c, t) for c, t in calls])
+    times["earlier_peak_mib"] = peak_mib(lambda: [nms_sweep_kernel(plain_rows(
+        sorted_boxes(b, s), t)) for b, s, t in groups])
+    emit(phase="nms_path", card=nvidia_smi(),
+         groups=[[tuple(b.shape) for b, _ in c] for c, _ in calls], **times)
+    return times
 
 
 def device_activity(call) -> dict:
@@ -2765,11 +2903,12 @@ def detector_phase(root: str) -> dict:
     random ``frcnn.npz`` in the converter's layout: the loaded weights are
     the file's bit for bit; 16 tennis-shaped frames at the default transform
     give static, finite outputs with some person boxes above 0.8, the
-    detector's forward a replayed graph (3 K4 launches per call, one copy
+    detector's forward a replayed graph (6 K4 launches per call, one copy
     in, three out); the same call op by op (``graphs.Eager``) bit for bit,
     both ways timed whole and split (backbone and FPN, box stages) with
-    their kernels and copies; K4 bit for bit and timed on the rows the call
-    gave it; the person boxes with TF32 on and off (a graph per setting,
+    their kernels and copies; K4 bit for bit and timed on the sorted boxes
+    the call gave it, and the NMS path per call (``nms_path_time``); the
+    person boxes with TF32 on and off (a graph per setting,
     each equal to the eager call); peak memory; then f32 with TF32 off
     against the CPU at a 32/86 transform: the FPN levels within
     backbone_error's tolerance, the final detections within
@@ -2800,30 +2939,33 @@ def detector_phase(root: str) -> dict:
     reset_launches()
     centers = detector(frames_np[None])
     torch.cuda.synchronize()
-    launches = nms_sweep.launches
-    require(launches == 3 and [p.captures for p in backend.programs.values()] == [1],
+    launches = nms_keep.launches
+    require(launches == 3 * NMS_LAUNCHES_PER_CALL
+            and [p.captures for p in backend.programs.values()] == [1],
             f"the detector launched K4 {launches} times in {len(backend.programs)} programs")
     require(centers.shape == (1, FRCNN_FRAMES, 2) and np.isfinite(centers).all(), centers)
 
     # 2. The graphed call (one copy in, one replay, three readbacks) and the
     # eager one, bit for bit; profiled right after the graph's capture.
     graphed_ms = synchronised_ms(lambda i: backend.detect(frames_np), FRCNN_TIMED_CALLS, warm=1)
-    before = nms_sweep.launches
+    before = nms_keep.launches
     boxes, scores, labels = graphed = backend.detect(frames_np)
-    per_call = nms_sweep.launches - before
+    per_call = nms_keep.launches - before
     graphed_activity = device_activity(lambda: backend.detect(frames_np))
     transfers = host_transfers(lambda: backend.detect(frames_np))
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    require(per_call == 3 and transfers == 1 + 3,
+    require(per_call == 3 * NMS_LAUNCHES_PER_CALL and transfers == 1 + 3,
             f"a graphed call: {per_call} K4 launches, {transfers} synchronising transfers")
     eager = frcnn.make_person_box_backend(variables, backend=graphs.Eager)
     eager_ms = synchronised_ms(lambda i: eager.detect(frames_np), FRCNN_TIMED_CALLS, warm=1)
-    with NmsRows() as recorded:
+    with NmsCalls() as calls:
         require_same_outputs(graphed, eager.detect(frames_np), "the detector")
     eager_activity = device_activity(lambda: eager.detect(frames_np))
-    require([tuple(r.shape[:2]) for r in recorded.rows] == [NMS_SHAPES[0], NMS_SHAPES[2],
-                                                            NMS_SHAPES[1]],
-            f"K4's sets {[tuple(r.shape) for r in recorded.rows]}")
+    nms_sets = [(sorted_boxes(b, s), t) for b, s, t in nms_groups(calls.calls)]
+    require([(tuple(b.shape[:2]), t) for b, t in nms_sets]
+            == [(NMS_SHAPES[0], frcnn.RPN_NMS_THRESH), (NMS_SHAPES[2], frcnn.RPN_NMS_THRESH),
+                (NMS_SHAPES[1], frcnn.BOX_NMS_THRESH)],
+            f"K4's sets {[(tuple(b.shape), t) for b, t in nms_sets]}")
     require(boxes.shape == (FRCNN_FRAMES, frcnn.DETECTIONS_PER_IMG, 4)
             and scores.shape == labels.shape == (FRCNN_FRAMES, frcnn.DETECTIONS_PER_IMG)
             and np.isfinite(boxes).all() and np.isfinite(scores).all(),
@@ -2859,12 +3001,17 @@ def detector_phase(root: str) -> dict:
                          "the graphed box stages")
     del features, detect, levels
 
-    # 4. K4 on the rows of the call, bit for bit, and its times per call.
-    nms_error = max(check_nms(rows, "detector") for rows in recorded.rows)
-    nms_times = {}
-    for rows in recorded.rows:
-        add_to(nms_times, "nms_sweep", nms_time(rows))
-    del recorded
+    # 4. K4 on the boxes of the call, bit for bit, and its times per call;
+    # the NMS path per call, and the passes its mask kernel replaced.
+    nms_error = max(check_nms(b, t, "detector") for b, t in nms_sets)
+    nms_times, nms_kernels = {}, dict(mask_ms=0.0, sweep_ms=0.0)
+    for b, t in nms_sets:
+        times = nms_time(b, t)
+        add_to(nms_times, "nms_keep", times)
+        for key in nms_kernels:
+            nms_kernels[key] += times[key]
+    nms_path = nms_path_time(calls.calls)
+    del nms_sets, calls
 
     # 5. TF32 off: a graph of its own, equal to the eager call.
     torch.backends.cudnn.allow_tf32 = False
@@ -2897,7 +3044,8 @@ def detector_phase(root: str) -> dict:
          peak_memory_gib=peak_gib, person_boxes_above_0_8_tf32_on=person,
          person_boxes_above_0_8_tf32_off=int((off[1] > 0.8).sum()),
          detections_above_0_05=int((scores > 0).sum()), player_centers=centers[0].tolist(),
-         nms_max_abs_err=nms_error, nms_per_call=nms_times["nms_sweep"], card=nvidia_smi())
+         nms_max_abs_err=nms_error, nms_per_call=nms_times["nms_keep"],
+         nms_kernels_per_call=nms_kernels, nms_path_per_call=nms_path, card=nvidia_smi())
     del model, detector, backend, eager, frames
 
     # f32 with TF32 off, the card against the CPU, at the reduced transform.
@@ -2939,7 +3087,7 @@ def detector_phase(root: str) -> dict:
     emit(phase="detector_parity", dtype="f32", tf32=False, frames=FRCNN_PARITY_FRAMES,
          transform=list(FRCNN_PARITY_RESIZE), score_atol=FRCNN_SCORE_ATOL,
          box_atol=FRCNN_BOX_ATOL, **report)
-    return dict(launches=launches, max_abs_err=nms_error, times=nms_times["nms_sweep"])
+    return dict(launches=launches, max_abs_err=nms_error, times=nms_times["nms_keep"])
 
 
 # Phase 15, data-parallel training: BAIR's loop config (``loop_config``)
@@ -4100,10 +4248,10 @@ def main() -> None:
                     plain_ms=sums[name]["plain_ms"], bound_ms=sums[name]["bound_ms"],
                     bound_by=sums[name]["bound_by"], library_ms=None)
                for name, (source, replaces) in KERNELS.items()]
-    # K4's times are per 16-frame detector call (its three launches), its
-    # launches those of phase 14's main path; no PyTorch call computes the
-    # sweep (torchvision's nms is not on the card's machine, and it is not
-    # a masked sweep of packed rows).
+    # K4's times are per 16-frame detector call (its three nms_keep calls,
+    # six launches), its launches those of phase 14's main path; no PyTorch
+    # call computes greedy NMS (torchvision's nms is not on the card's
+    # machine).
     kernels.append(dict(NMS_KERNEL, route="cuda", launches=detector["launches"],
                         max_abs_err=max(nms_error, detector["max_abs_err"]),
                         **{key: detector["times"][key]

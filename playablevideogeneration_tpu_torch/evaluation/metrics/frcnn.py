@@ -23,12 +23,12 @@ The ResNet50-FPN, the RPN head and the box head run batched over a
 sequence's frames on the device.  Ties in a top-k or in NMS's score order
 go to the lower index, as ``jax.lax.top_k`` and the stable ``jnp.argsort``
 break them (a stable descending sort).  The greedy NMS runs on the device,
-as the JAX package's ``lax.scan`` does: the score-sorted IoU > threshold
-matrix of every candidate set, packed to bits, then the sweep over its
-rows (``ops.cuda.nms_sweep``, a hand-written kernel on the card), one
-launch per set size (``nms_masks``): for the RPN one for the levels of
-1000 candidates of all frames and one for the smaller P6, and one for the
-box stage.  Everything runs in f32 without gradients.
+as the JAX package's ``lax.scan`` does: the boxes of every candidate set
+in score order go to ``ops.cuda.nms_keep`` (on the card two hand-written
+kernels: the IoU > threshold rows packed to bits, then the sweep over
+them), one call per set size (``nms_masks``): for the RPN one for the
+levels of 1000 candidates of all frames and one for the smaller P6, and
+one for the box stage.  Everything runs in f32 without gradients.
 
 Nothing in the forward reads the host: the constants it needs (the
 ImageNet mean and standard deviation, the anchors) are made on the device
@@ -50,7 +50,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from playablevideogeneration_tpu_torch.inference import graphs
-from playablevideogeneration_tpu_torch.ops.cuda.nms_sweep import nms_sweep
+from playablevideogeneration_tpu_torch.ops.cuda.nms_sweep import nms_keep
+# The box math's IoU, kept beside the NMS kernels whose plain version uses it.
+from playablevideogeneration_tpu_torch.ops.cuda.nms_sweep import box_iou  # noqa: F401
 from playablevideogeneration_tpu_torch.utils.device import DeviceLike
 from playablevideogeneration_tpu_torch.utils.jax_weights import build_from_jax_variables
 from playablevideogeneration_tpu_torch.utils.tensor_ops import resize_bilinear
@@ -287,17 +289,6 @@ def clip_boxes(boxes: torch.Tensor, height: float, width: float) -> torch.Tensor
                         boxes[..., 2].clamp(0, width), boxes[..., 3].clamp(0, height)], dim=-1)
 
 
-def box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(..., N, 4) x (..., M, 4) -> (..., N, M) IoU."""
-    area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
-    area_b = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
-    lt = torch.maximum(a[..., :, None, :2], b[..., None, :, :2])
-    rb = torch.minimum(a[..., :, None, 2:], b[..., None, :, 2:])
-    wh = torch.clamp(rb - lt, min=0)
-    inter = wh[..., 0] * wh[..., 1]
-    return inter / torch.clamp(area_a[..., :, None] + area_b[..., None, :] - inter, min=1e-9)
-
-
 def top_k(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The ``k`` largest scores along the last axis and their indices, ties
     to the lower index, as ``jax.lax.top_k`` returns them."""
@@ -310,19 +301,12 @@ def _gather_rows(x: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, -2, indices[..., None].expand(*indices.shape, x.shape[-1]))
 
 
-def _packed_suppression(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The score order (stable, descending) of (..., n) candidates and the
-    (..., n, 4 ceil(n / 32)) uint8 rows of their sorted IoU > threshold
-    matrix, column j in bit j % 8 of byte j // 8: each row a whole number
-    of little-endian 32-bit words, as ``ops.cuda.nms_sweep`` reads them."""
+def _score_order(boxes: torch.Tensor, scores: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The score order (stable, descending) of (..., n) candidates, and
+    their boxes (..., n, 4) in that order."""
     order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
-    ordered = _gather_rows(boxes, order)
-    over = (box_iou(ordered, ordered) > iou_threshold).to(torch.uint8)
-    over = F.pad(over, (0, -over.shape[-1] % 32))
-    bits = (1 << torch.arange(8, device=over.device)).to(torch.uint8)
-    packed = (over.view(*over.shape[:-1], -1, 8) * bits).sum(-1, dtype=torch.uint8)
-    return order, packed
+    return order, _gather_rows(boxes, order)
 
 
 def nms_masks(candidates: Sequence[Tuple[torch.Tensor, torch.Tensor]], iou_threshold: float
@@ -330,18 +314,17 @@ def nms_masks(candidates: Sequence[Tuple[torch.Tensor, torch.Tensor]], iou_thres
     """Greedy NMS keep-masks of several candidate sets, each boxes (...,
     n, 4) and scores (..., n), with static shapes: the keep-masks (...,
     n) over the inputs, semantically ``torchvision.ops.nms`` (the JAX
-    package's ``nms_mask`` scan).  The sets of one shape are stacked and
-    swept by one ``nms_sweep``; nothing goes to the host."""
+    package's ``nms_mask``).  The sets of one shape are stacked, sorted
+    and given to one ``nms_keep``; nothing goes to the host."""
     groups: Dict[Tuple[int, ...], List[int]] = {}
     for index, (boxes, _) in enumerate(candidates):
         groups.setdefault(tuple(boxes.shape), []).append(index)
     keeps: List[Optional[torch.Tensor]] = [None] * len(candidates)
     for members in groups.values():
-        order, packed = _packed_suppression(torch.stack([candidates[i][0] for i in members]),
-                                            torch.stack([candidates[i][1] for i in members]),
-                                            iou_threshold)
+        order, ordered = _score_order(torch.stack([candidates[i][0] for i in members]),
+                                      torch.stack([candidates[i][1] for i in members]))
         n = order.shape[-1]
-        keep_sorted = nms_sweep(packed.reshape(-1, n, packed.shape[-1])).reshape(order.shape)
+        keep_sorted = nms_keep(ordered.reshape(-1, n, 4), iou_threshold).reshape(order.shape)
         keep = torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)
         for member, mask in zip(members, keep):
             keeps[member] = mask

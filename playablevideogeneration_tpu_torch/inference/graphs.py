@@ -94,10 +94,10 @@ from playablevideogeneration_tpu_torch.ops.cuda.convlstm_gates import (
 from playablevideogeneration_tpu_torch.ops.cuda.fused_norm_act import (
     fused_batch_norm_leaky_relu,
 )
-from playablevideogeneration_tpu_torch.ops.cuda.nms_sweep import nms_sweep
+from playablevideogeneration_tpu_torch.ops.cuda.nms_sweep import nms_keep
 
 # The kernel wrappers whose ``launches`` a program keeps.
-COUNTED = (fused_lstm_gates, fused_lstm_gates_bwd, fused_batch_norm_leaky_relu, nms_sweep)
+COUNTED = (fused_lstm_gates, fused_lstm_gates_bwd, fused_batch_norm_leaky_relu, nms_keep)
 WARMUP_CALLS = 2
 # The programs a ``ProgramCache`` keeps, as the JAX evaluator keeps its
 # jitted forwards.
