@@ -4,7 +4,8 @@ convergence soak, the Faster R-CNN detector (its NMS in K4, two
 hand-written kernels), data- and tensor-parallel
 training, the tools (the step profiler, the input-pipeline bench and the
 CLI soak), the graphed inference routes and the graphed training step and
-evaluation batch against eager ones, on one NVIDIA Hopper GPU.
+evaluation batch against eager ones, and the paper's Breakout and Tennis
+experiments at their configs' full widths, on one NVIDIA Hopper GPU.
 
 Run from the repository root on a machine with an H100:
 
@@ -24,7 +25,10 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    and 16), the training loop's gate shapes at batch 8, every shape an
    evaluation or builder batch gives K3 (8 x 30 frames: ``EVAL_NORM_SHAPES``)
    and phase 11's f32 builder batch of 2 x 8 frames gives K1 and K3, phase
-   15's ranks' 4 rows give K1 and K2, plus a
+   15's ranks' 4 rows give K1 and K2, every shape phase 20 gives them
+   (``PAPER_SHAPES``: Breakout's and Tennis's play steps, training
+   batches, f32 train steps of 2 and evaluation and builder batches of 16
+   x 32 and 32 x 16; K3 at Breakout's 13x10 one element per thread), plus a
    ragged case (3x65x25x40), a C*H*W that is no multiple of a vector
    (3x5x7x9) and inputs whose storage starts one element into its buffer,
    in f32 and bf16, and K2 at the training and loop shapes, the ragged and
@@ -81,7 +85,7 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    shapes, warm and cold, beside their bounds and plain versions' times,
    the median bf16 train step, ``train_frames_per_sec`` (B*T per step),
    peak device memory, and the device's busy and idle share and
-   kernel-time breakdown over two profiled steps (the port's kernels listed
+   kernel-time breakdown over one profiled step (the port's kernels listed
    one by one), both ways: phase 7's graphed trainer and one op by op
    (``graphs.Eager``) from the same seed;
 10. train loop: BAIR's config (``BAIR_CONFIG``, pinned to
@@ -264,15 +268,45 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    graphed and op by op: the metrics bit for bit, 87 K1 + 446 K3 per batch,
    seconds per batch (the first graphed one with its capture), device busy
    time and idle share.
+20. the paper's Breakout and Tennis experiments (``PAPER_RUNS``:
+   configs/02_breakout.yaml and configs/03_tennis.yaml with their
+   evaluation configs as dicts, pinned to the files by
+   tests/test_torch_configs.py) at each config's full widths, frame sizes
+   and batch sizes in bf16 from seeded weights, only steps and batch
+   counts cut (``PAPER_OVERRIDES``), on in-memory synthetic videos (208x160
+   stacking 1, the square on Breakout's platform rows; 96x256 stacking 4,
+   skip 4): a graphed ``PlaySession`` (3 K1 + 15 K3 per step, frames in
+   [-1, 1], the window shifting by the new frame, one synchronisation per
+   rollout; step latency and rollout frame rate); 3 f32 play steps card
+   against CPU within 1e-3 (frames, carries, windows); one loader batch at
+   the full length, each observation's stack the frames it should hold;
+   the config's trainer through the registry (smooth MI for Breakout, the
+   plain trainer with the action-state KL for Tennis) graphed at 8 x 9 and
+   6 x 12: one pretraining and two full-phase steps, K1 and K2 3(T-1) and
+   K3 never, one capture per key, the plain trainer's program with no
+   state; the step's median both ways; one f32 full-phase step on 2 x 4
+   card against CPU (terms rtol 1e-3 or ``PAPER_TERMS_ATOL``, gradient
+   norms rtol 1e-2); ``cli.train.train`` for 1 pretraining and 4
+   full-phase steps and the evaluation at 16 x 32 (three passes) and 32 x
+   16 (one), one batch per pass, every step and batch checked as in phase
+   10, the loop's step period; the play CLI on ``latest``; the builder over
+   one test batch twice (capture, then replays: the same videos);
+   ``cli.evaluate_dataset`` on its videos (Breakout's colour scan,
+   Tennis's blob detector, then the Faster R-CNN on phase 14's random
+   weights found through ``tpu.pretrained_weights_dir``, 6 K4 launches per
+   16-frame detector call): every key or its marker; every K1-K3 shape the
+   run gave (card and CPU) among those of phase 3; K1-K3 timed at the new
+   shapes.
 
 It prints JSON lines as it goes, then the kernels' summary line (``ms``,
 ``cold_ms``, ``plain_ms`` and ``bound_ms`` there are per step of the
 kernel's route: the sum over a bf16 play step's launches for K1 and K3,
 over a bf16 training step's 33 K2 launches for K2, over a 16-frame
 detector call's 6 launches for K4; ``launches`` counts phase 4's, 7's,
-10's, 11's, 13's, 15's, 16's, 17's, 18's and 19's runs in this process
-for K1-K3, without the f32 parity checks and the soak's stage processes,
-and phase 14's main path for K4), the card's nvidia-smi line, and last
+10's, 11's, 13's, 15's, 16's, 17's, 18's, 19's and 20's runs in this
+process for K1-K3, without the f32 parity checks and the soak's stage
+processes, and phase 14's main path and phase 20's Tennis evaluation with
+the Faster R-CNN for K4), the card's nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -312,10 +346,12 @@ from playablevideogeneration_tpu_torch.cli.evaluate_dataset import evaluate_data
 from playablevideogeneration_tpu_torch.cli.interpolate import interpolate
 from playablevideogeneration_tpu_torch.cli.play import load_play_session, scripted_rollout
 from playablevideogeneration_tpu_torch.cli.train import build_run, train
+from playablevideogeneration_tpu_torch.config import registry
 from playablevideogeneration_tpu_torch.config.configuration import (
     Configuration,
     EvaluationConfiguration,
 )
+from playablevideogeneration_tpu_torch.data.loader import DataLoader
 from playablevideogeneration_tpu_torch.data.synthetic import make_moving_square_video
 from playablevideogeneration_tpu_torch.data.transforms import (
     get_evaluation_transforms,
@@ -408,16 +444,25 @@ SEED = 0
 # from the run's seed, SEED; the metrics' from RANDOM_VGG_SEED), so that a
 # VGG19 equal to the file's was loaded from it.
 WEIGHTS_SEED = 5
+
+
+def loss_weights(mutual_information: float, state_distribution_kl: float) -> dict:
+    """The configs' loss weights, each the same in both phases; they differ
+    in the mutual information's and the action-state KL's."""
+    weights = {}
+    for name, value in [("reconstruction_loss_lambda", 1.0), ("perceptual_loss_lambda", 1.0),
+                        ("action_divergence_lambda", 0.0), ("states_rec_lambda", 0.2),
+                        ("entropy_lambda", 0.0), ("action_directions_kl_lambda", 0.0001),
+                        ("action_mutual_information_lambda", mutual_information),
+                        ("action_state_distribution_kl_lambda", state_distribution_kl)]:
+        weights[name] = weights[name + "_pretraining"] = value
+    weights["hidden_states_rec_lambda_pretraining"] = 1.0
+    return weights
+
+
 # configs/01_bair.yaml as a dict, since the card's machine has no PyYAML;
 # tests/test_torch_data.py pins it to the file.
-BAIR_LOSS_WEIGHTS = {}
-for _name, _value in [("reconstruction_loss_lambda", 1.0), ("perceptual_loss_lambda", 1.0),
-                      ("action_divergence_lambda", 0.0), ("states_rec_lambda", 0.2),
-                      ("entropy_lambda", 0.0), ("action_directions_kl_lambda", 0.0001),
-                      ("action_mutual_information_lambda", 0.15),
-                      ("action_state_distribution_kl_lambda", 0.0)]:
-    BAIR_LOSS_WEIGHTS[_name] = BAIR_LOSS_WEIGHTS[_name + "_pretraining"] = _value
-BAIR_LOSS_WEIGHTS["hidden_states_rec_lambda_pretraining"] = 1.0
+BAIR_LOSS_WEIGHTS = loss_weights(0.15, 0.0)
 BAIR_CONFIG = {
     "logging": {"run_name": "01_bair", "output_root": "results", "save_root": "checkpoints"},
     "data": {"data_root": "data/bair_256_ours", "crop": [0, 0, 256, 256], "actions_count": 7,
@@ -547,17 +592,19 @@ GATE_LOOP_SHAPES = [(LOOP_BATCH, 128, 32, 32), (LOOP_BATCH, 256, 16, 16),
 GATE_RANK_SHAPES = [(LOOP_BATCH // 2,) + s[1:] for s in GATE_LOOP_SHAPES]
 
 
-def eval_norm_shapes(batch: int, frames: int) -> list:
+def eval_norm_shapes(batch: int, frames: int, play: list = NORM_SHAPES) -> list:
     """Every K3 launch of one evaluation forward (the model in eval mode,
-    forward_full_model) of ``batch`` sequences of ``frames``: E encodes all
-    batch*frames frames, A runs twice on as many states (the actions, then
-    their re-estimate on the reconstruction), and each of the frames-1
-    dynamics steps runs R, D and E (the window's re-encoding) at ``batch``,
-    as the play step runs them at batch 1."""
+    forward_full_model) of ``batch`` sequences of ``frames``, from the
+    ``play`` step's (E's 7, then R's and D's): E encodes all batch*frames
+    frames, A runs twice on as many states (the actions, then their
+    re-estimate on the reconstruction) at 128 channels and R's first
+    resolution, and each of the frames-1 dynamics steps runs R, D and E (the
+    window's re-encoding) at ``batch``, as the play step runs them at batch
+    1."""
     flat = batch * frames
-    return ([(flat,) + s[1:] for s in NORM_SHAPES[:7]]        # E
-            + [(flat, 128, 16, 16)] * 4                       # A: res0.bn1, res1.bn1, x2
-            + [(batch,) + s[1:] for s in NORM_SHAPES[7:] + NORM_SHAPES[:7]]
+    return ([(flat,) + s[1:] for s in play[:7]]               # E
+            + [(flat, 128) + play[7][2:]] * 4                 # A: res0.bn1, res1.bn1, x2
+            + [(batch,) + s[1:] for s in play[7:] + play[:7]]
             * (frames - 1))                                   # R, D, E per step
 
 
@@ -597,6 +644,106 @@ BAIR_EVALUATION_CONFIG = {
                    "batching": {"batch_size": 1, "observations_count": 30, "skip_frames": 0,
                                 "observation_stacking": 1, "num_workers": 8}},
 }
+# configs/02_breakout.yaml, configs/03_tennis.yaml and their evaluation
+# configs as dicts; tests/test_torch_configs.py pins them to the files.
+BREAKOUT_CONFIG = {
+    "logging": {"run_name": "02_breakout", "output_root": "results", "save_root": "checkpoints"},
+    "data": {"data_root": "data/breakout_v2_160_ours", "crop": [0, 0, 160, 208],
+             "actions_count": 3, "ground_truth_available": True},
+    "model": {
+        "architecture": "model.reduced_model.model",
+        "representation_network": {"target_input_size": [160, 208], "state_features": 64,
+                                   "state_resolution": [26, 20]},
+        "dynamics_network": {"hidden_state_size": 64, "embedding_mlp_size": 64,
+                             "random_noise_size": 32},
+        "rendering_network": {"input_shape": [64, 26, 20]},
+        "action_network": {"use_gumbel": True, "hard_gumbel": False, "ensamble_size": 1,
+                           "gumbel_temperature": 1.0, "action_space_dimension": 1},
+        "centroid_estimator": {"alpha": 0.1},
+    },
+    "training": {
+        "trainer": "training.smooth_mi_trainer", "use_ground_truth_actions": False,
+        "learning_rate": 0.0004, "weight_decay": 0.000001, "pretraining_steps": 3000,
+        "pretraining_detach": False, "lr_schedule": [300000, 10000000000], "lr_gamma": 0.3333,
+        "max_steps": 300000, "save_freq": 3000, "ground_truth_observations_start": 6,
+        "ground_truth_observations_end": 6, "ground_truth_observations_steps": 16000,
+        "gumbel_temperature_start": 1.0, "gumbel_temperature_end": 0.4,
+        "gumbel_temperature_steps": 20000, "mutual_information_estimation_alpha": 0.2,
+        "batching": {"batch_size": 8, "observations_count": 9, "observations_count_start": 7,
+                     "observations_count_steps": 15000, "skip_frames": 0,
+                     "observation_stacking": 1, "num_workers": 8},
+        "loss_weights": loss_weights(0.15, 0.0),
+        "action_direction_plotting_freq": 1000,
+    },
+    "evaluation": {
+        "evaluator": "evaluation.evaluator", "max_evaluation_batches": 20, "eval_freq": 8000,
+        "batching": {"batch_size": 16, "observations_count": 32, "skip_frames": 0,
+                     "observation_stacking": 1, "num_workers": 8},
+    },
+    "evaluation_dataset": {"ground_truth_observations_init": 4,
+                           "builder": "evaluation.evaluation_dataset_builder"},
+    "tpu": {"compute_dtype": "bfloat16"},
+}
+TENNIS_CONFIG = {
+    "logging": {"run_name": "03_tennis", "output_root": "results", "save_root": "checkpoints"},
+    "data": {"data_root": "data/tennis_v4_256_ours", "crop": [0, 0, 256, 96],
+             "actions_count": 7, "ground_truth_available": False},
+    "model": {
+        "architecture": "model.main_model.model",
+        "representation_network": {"target_input_size": [256, 96], "state_features": 64,
+                                   "state_resolution": [12, 32]},
+        "dynamics_network": {"hidden_state_size": 128, "embedding_mlp_size": 128,
+                             "random_noise_size": 32},
+        "rendering_network": {"input_shape": [128, 12, 32]},
+        "action_network": {"use_gumbel": True, "hard_gumbel": False, "ensamble_size": 1,
+                           "gumbel_temperature": 1.0, "action_space_dimension": 5},
+        "centroid_estimator": {"alpha": 0.1},
+    },
+    "training": {
+        "trainer": "training.trainer", "use_ground_truth_actions": False,
+        "learning_rate": 0.0004, "weight_decay": 0.000001, "pretraining_steps": 3000,
+        "pretraining_detach": False, "lr_schedule": [300000, 10000000000], "lr_gamma": 0.3333,
+        "max_steps": 300000, "save_freq": 3000, "ground_truth_observations_start": 6,
+        "ground_truth_observations_end": 6, "ground_truth_observations_steps": 16000,
+        "gumbel_temperature_start": 1.0, "gumbel_temperature_end": 0.4,
+        "gumbel_temperature_steps": 20000,
+        "batching": {"batch_size": 6, "observations_count": 12, "observations_count_start": 7,
+                     "observations_count_steps": 25000, "skip_frames": 4,
+                     "observation_stacking": 4, "num_workers": 8},
+        "loss_weights": loss_weights(0.03, 0.00001),
+        "action_direction_plotting_freq": 1000,
+    },
+    "evaluation": {
+        "evaluator": "evaluation.evaluator", "eval_freq": 8000,
+        "batching": {"batch_size": 32, "observations_count": 16, "skip_frames": 0,
+                     "observation_stacking": 4, "num_workers": 8},
+    },
+    "evaluation_dataset": {"ground_truth_observations_init": 4,
+                           "builder": "evaluation.evaluation_dataset_builder"},
+    "tpu": {"compute_dtype": "bfloat16"},
+}
+BREAKOUT_EVALUATION_CONFIG = {
+    "logging": {"run_name": "02_breakout", "comments": "", "output_root": "evaluation_results"},
+    "data": {"target_input_size": [160, 208], "actions_count": 3,
+             "ground_truth_available": False},
+    "reference_data": {"data_root": "data/breakout_v2_160_ours/test", "crop": [0, 0, 160, 208]},
+    "generated_data": {"data_root": "results/02_breakout/evaluation_dataset",
+                       "crop": [0, 0, 160, 208]},
+    "evaluation": {"evaluator": "evaluation.dataset_evaluator_breakout",
+                   "batching": {"batch_size": 1, "observations_count": 32, "skip_frames": 0,
+                                "observation_stacking": 1, "num_workers": 8}},
+}
+TENNIS_EVALUATION_CONFIG = {
+    "logging": {"run_name": "03_tennis", "comments": "", "output_root": "evaluation_results"},
+    "data": {"target_input_size": [256, 96], "actions_count": 7,
+             "ground_truth_available": False},
+    "reference_data": {"data_root": "data/tennis_v4_256_ours/test", "crop": [0, 0, 256, 96]},
+    "generated_data": {"data_root": "results/03_tennis/evaluation_dataset",
+                       "crop": [0, 0, 256, 96]},
+    "evaluation": {"evaluator": "evaluation.dataset_evaluator", "detector": "blob",
+                   "batching": {"batch_size": 1, "observations_count": 16, "skip_frames": 0,
+                                "observation_stacking": 1, "num_workers": 8}},
+}
 # Phase 12: the seeds of the random Inception (with its 1008-way head) and
 # I3D written as converted weights, apart from every other seed here, so
 # that backbones equal to the files' were loaded from them; the f32
@@ -632,11 +779,12 @@ def loop_roots(root: str) -> dict:
             ("logging", "save_root"): os.path.join(root, "checkpoints")}
 
 
-def loop_config(root: str) -> dict:
+def loop_config(root: str, base: dict = BAIR_CONFIG, overrides: dict = LOOP_OVERRIDES) -> dict:
     """Phase 10's checked run config: BAIR_CONFIG with LOOP_OVERRIDES and
-    its outputs under ``root``."""
-    config = copy.deepcopy(BAIR_CONFIG)
-    for (section, key), value in {**LOOP_OVERRIDES, **loop_roots(root)}.items():
+    its outputs under ``root`` (phase 20: a paper config with
+    PAPER_OVERRIDES)."""
+    config = copy.deepcopy(base)
+    for (section, key), value in {**overrides, **loop_roots(root)}.items():
         config[section][key] = value
     Configuration(config=config).check_config(check_data_root=False)
     for (section, key), value in CHECKED_OVERRIDES.items():
@@ -743,28 +891,32 @@ def compare(name, shape, dtype, got, want) -> float:
 
 def check_kernels(gen) -> dict:
     """Phase 3, K1, K2 and K3; returns the largest error of each kernel.
-    The unvectored shape and the views that start one element into their
-    buffers must run one element per thread, and each kernel must run
-    packs at some flagship shape in each dtype."""
+    The unvectored shape, the views that start one element into their
+    buffers and K3 at Breakout's 13x10 must run one element per thread, and
+    each kernel must run packs at some flagship shape in each dtype."""
     errors = dict.fromkeys(KERNELS, 0.0)
     for dtype in (torch.float32, torch.bfloat16):
         cases = [("convlstm_gates", s, o, gate_inputs(s, dtype, gen, o), fused_lstm_gates,
                   _gate_math)
                  for s, o in [(s, 0) for s in unique(GATE_SHAPES + GATE_TRAIN_SHAPES
                                                      + GATE_LOOP_SHAPES + GATE_RANK_SHAPES
-                                                     + GATE_PARITY_SHAPES)]
+                                                     + GATE_PARITY_SHAPES
+                                                     + PAPER_SHAPES["convlstm_gates"])]
                  + [(GATE_RAGGED_SHAPE, 0), (UNVECTORED_SHAPE, 0), (GATE_SHAPES[0], 1)]]
         cases += [("convlstm_gates_bwd", s, o, gate_backward_inputs(s, dtype, gen, o),
                    fused_lstm_gates_bwd, _gate_math_bwd)
                   for s, o in [(s, 0) for s in unique(GATE_TRAIN_SHAPES + GATE_LOOP_SHAPES
-                                                      + GATE_RANK_SHAPES)]
+                                                      + GATE_RANK_SHAPES
+                                                      + PAPER_SHAPES["convlstm_gates_bwd"])]
                   + [(GATE_RAGGED_SHAPE, 0), (UNVECTORED_SHAPE, 0), (GATE_TRAIN_SHAPES[0], 1)]]
         cases += [("fused_norm_act", s, o, norm_inputs(s, dtype, gen, o),
                    fused_batch_norm_leaky_relu, _batch_norm_leaky_relu)
                   for s, o in [(s, 0) for s in unique(NORM_SHAPES + EVAL_NORM_SHAPES
-                                                      + PARITY_NORM_SHAPES)]
+                                                      + PARITY_NORM_SHAPES
+                                                      + PAPER_SHAPES["fused_norm_act"])]
                   + [(UNVECTORED_SHAPE, 0), (NORM_SHAPES[2], 1)]]
         widths = {name: set() for name in errors}
+        ragged_norms = []
         for name, shape, offset, args, kernel, plain in cases:
             got, want = kernel(*args), plain(*args)
             torch.cuda.synchronize()
@@ -784,10 +936,15 @@ def check_kernels(gen) -> dict:
                                            elements=16 // args[0].element_size())
             require(width == 1 or not (offset or shape == UNVECTORED_SHAPE),
                     f"{name} {shape} offset {offset}: vector width {width}")
+            if name == "fused_norm_act" and math.prod(shape[2:]) == RAGGED_NORM_HW:
+                ragged_norms.append(width)
             widths[name].add(width)
             emit(phase="kernel_check", kernel=name, shape=shape, storage_offset=offset,
                  dtype=DTYPE_NAMES[dtype], vector_width=width, max_abs_err=err)
         require(all(w - {1} for w in widths.values()), f"{dtype}: vector widths {widths}")
+        # Breakout's 13x10 K3 launches, whose rows no pack divides.
+        require(ragged_norms and set(ragged_norms) == {1},
+                f"{dtype}: K3 at H*W {RAGGED_NORM_HW} took widths {ragged_norms}")
     return errors
 
 
@@ -987,26 +1144,32 @@ def play_route(model, obs: np.ndarray, actions: np.ndarray) -> dict:
     return launches
 
 
-def route_parity(obs: np.ndarray, actions: np.ndarray) -> float:
-    """Phase 5: f32 through the kernels on the card vs the plain path on
-    the CPU, same seeded weights; returns the largest frame difference."""
+def route_parity(obs: np.ndarray, actions: np.ndarray, make=None, run: str = "01_bair") -> float:
+    """Phase 5 (phase 20: ``make(device)`` a paper config's f32 model): f32
+    through the kernels on the card vs the plain path on the CPU, same
+    seeded weights; frames, carries and windows within 1e-3 over three
+    steps; returns the largest difference."""
+    if make is None:
+        def make(device):
+            return flagship_model(device, torch.float32, SEED)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    gpu = PlaySession(flagship_model("cuda", torch.float32, SEED)).start(obs)
-    cpu = PlaySession(flagship_model("cpu", torch.float32, SEED)).start(obs)
+    gpu = PlaySession(make("cuda")).start(obs)
+    cpu = PlaySession(make("cpu")).start(obs)
     before = fused_lstm_gates.launches, fused_batch_norm_leaky_relu.launches
     err = 0.0
     for a in actions[:3]:
         got, want = gpu.generate_next(int(a)), cpu.generate_next(int(a))
-        check_frame(got, (256, 256, 3))
+        check_frame(got, obs.shape[:2] + (3,))
         err = max(err, float(np.abs(got - want).max()))
     counts = (fused_lstm_gates.launches - before[0],
               fused_batch_norm_leaky_relu.launches - before[1])
     require(counts == (9, 45), f"f32 route launched {counts}, not (9, 45)")
     for (gh, gc), (ch, cc) in zip(gpu.carry, cpu.carry):
         err = max(err, (gh.cpu() - ch).abs().max().item(), (gc.cpu() - cc).abs().max().item())
-    require(err <= 1e-3, f"f32 route differs from the CPU plain path by {err}")
-    emit(phase="route_parity", dtype="f32", tf32=False, steps=3, max_abs_err=err,
+    err = max(err, (gpu.window.cpu() - cpu.window).abs().max().item())
+    require(err <= 1e-3, f"{run}: the f32 route differs from the CPU plain path by {err}")
+    emit(phase="route_parity", run=run, dtype="f32", tf32=False, steps=3, max_abs_err=err,
          tolerance=1e-3)
     return err
 
@@ -1297,9 +1460,8 @@ def train_route(trainer: Trainer, batch) -> dict:
 
 def train_parity() -> dict:
     """Phase 8: one f32 full-phase step at full width on the card and on
-    the CPU, same weights, same batch, same noise (one CPU generator each,
-    seeded alike).  Both models checkpoint each step, as the bf16 route
-    does, so the card's recompute (K1 relaunched under
+    the CPU (``compare_train_steps``).  Both models checkpoint each step,
+    as the bf16 route does, so the card's recompute (K1 relaunched under
     ``torch.utils.checkpoint``, the frozen BatchNorm statistics, K2 on the
     recomputed residuals) is held against the CPU's plain versions."""
     torch.backends.cudnn.allow_tf32 = False
@@ -1312,13 +1474,30 @@ def train_parity() -> dict:
     config["training"]["ground_truth_observations_end"] = 2
     batch = make_synthetic_batch(batch_size=2, observations_count=4, height=256, width=256,
                                  seed=SEED)
+
+    def trainer(device):
+        return Trainer(config, flagship_model(device, torch.float32, SEED,
+                                              checkpoint_steps=True),
+                       smooth_mi=True, seed=SEED, backend=graphs.Eager)
+
+    # T=4 gives 3 dynamics steps: K1 in the forward and again in the
+    # recompute, K2 once.
+    return compare_train_steps(trainer, batch, {"convlstm_gates": 18, "convlstm_gates_bwd": 9,
+                                                "fused_norm_act": 0}, checkpointed=True)
+
+
+def compare_train_steps(make_trainer, batch, launches_wanted: dict, run: str = "01_bair",
+                        terms_atol: float = 0.0, **record) -> dict:
+    """One f32 full-phase step (2 ground-truth frames) of
+    ``make_trainer(device)``'s trainer on the card and on the CPU, same
+    weights, same batch, same noise (one CPU generator each, seeded alike,
+    so the card's step runs op by op: a graph cannot replay a host
+    generator): the card's launches ``launches_wanted``, the loss and every
+    term within rtol 1e-3 (or within ``terms_atol``), the per-subnetwork
+    gradient norms within rtol 1e-2; returns the relative errors."""
     results = {}
     for device in ("cuda", "cpu"):
-        # Op by op on the card too: both draw their noise from a CPU
-        # generator, which a CUDA graph cannot replay.
-        trainer = Trainer(config, flagship_model(device, torch.float32, SEED,
-                                                 checkpoint_steps=True),
-                          smooth_mi=True, seed=SEED, backend=graphs.Eager)
+        trainer = make_trainer(device)
         trainer.init_state()
         trainer.generator = torch.Generator().manual_seed(SEED)
         reset_launches()
@@ -1326,10 +1505,8 @@ def train_parity() -> dict:
         if device == "cuda":
             torch.cuda.synchronize()
             launches = read_launches()
-    # T=4 gives 3 dynamics steps: K1 in the forward and again in the
-    # recompute, K2 once.
-    require(launches == {"convlstm_gates": 18, "convlstm_gates_bwd": 9, "fused_norm_act": 0},
-            f"train parity launched {launches}")
+        del trainer
+    require(launches == launches_wanted, f"{run}: train parity launched {launches}")
     got, want = results["cuda"], results["cpu"]
     require(got["ground_truth_observations"] == 2, got["ground_truth_observations"])
     terms = [k for k in want if not k.startswith("grad_norm/")
@@ -1337,18 +1514,20 @@ def train_parity() -> dict:
                            "observations_count", "lr", "pretraining")]
     norms = [k for k in want if k.startswith("grad_norm/")]
     errors = {}
-    for keys, rtol in ((terms, 1e-3), (norms, 1e-2)):
+    for keys, rtol, atol in ((terms, 1e-3, terms_atol), (norms, 1e-2, 0.0)):
         for k in keys:
             errors[k] = abs(got[k] - want[k]) / max(abs(want[k]), 1e-5)
-            require(np.isfinite(got[k]) and errors[k] <= rtol,
-                    f"train parity {k}: card {got[k]} vs CPU {want[k]}")
-    emit(phase="train_parity", dtype="f32", tf32=False, batch=2, frames=4, checkpointed=True,
-         launches=launches,
-         ground_truth_observations=2, loss_card=got["loss"], loss_cpu=want["loss"],
-         max_rel_err_terms=max(errors[k] for k in terms),
+            require(np.isfinite(got[k]) and (errors[k] <= rtol or abs(got[k] - want[k]) <= atol),
+                    f"{run}: train parity {k}: card {got[k]} vs CPU {want[k]}")
+    b, t = np.shape(batch.observations)[:2]
+    emit(phase="train_parity", run=run, dtype="f32", tf32=False, batch=b, frames=t,
+         launches=launches, ground_truth_observations=2, loss_card=got["loss"],
+         loss_cpu=want["loss"], max_rel_err_terms=max(errors[k] for k in terms),
          max_rel_err_grad_norms=max(errors[k] for k in norms),
-         tolerance_terms=1e-3, tolerance_grad_norms=1e-2,
-         grad_norms_card={k: got[k] for k in norms}, grad_norms_cpu={k: want[k] for k in norms})
+         tolerance_terms=1e-3, atol_terms=terms_atol, tolerance_grad_norms=1e-2,
+         rel_err_terms={k: errors[k] for k in terms},
+         grad_norms_card={k: got[k] for k in norms}, grad_norms_cpu={k: want[k] for k in norms},
+         **record)
     return errors
 
 
@@ -1374,12 +1553,15 @@ def time_gate_kernels_in_training(gen) -> dict:
     return total["convlstm_gates_bwd"]
 
 
-def time_train(trainer: Trainer, batch, way: str) -> dict:
-    """Phase 9b: median full-phase train step, frames per second, peak
-    memory, and the device's busy share over two profiled steps, ``way``
-    naming the trainer's route (``graphed`` or ``eager``).  A graphed step
-    allocates nothing: its peak is what lives beside the graph's pool, the
-    pool being allocated when it was captured."""
+def time_train(trainer: Trainer, batch, way: str, run: str = "01_bair",
+               profiled_steps: int = 1) -> dict:
+    """Phase 9b: median full-phase train step, frames per second (B*T of
+    ``batch`` per step), peak memory, and the device's busy share over
+    ``profiled_steps`` profiled steps (none: no busy share), ``way`` naming
+    the trainer's route (``graphed`` or ``eager``), ``run`` its config
+    (phase 20: a paper config's).  A graphed step allocates nothing: its
+    peak is what lives beside the graph's pool, the pool being allocated
+    when it was captured."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1391,28 +1573,32 @@ def time_train(trainer: Trainer, batch, way: str) -> dict:
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    steps = 2
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            trainer.train_step(batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    kernels = sorted(((e.key, e.device_time_total / steps / 1e3, e.count / steps)
-                      for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda k: -k[1])
+    kernels, wall_ms = [], None
+    if profiled_steps:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(profiled_steps):
+                trainer.train_step(batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / profiled_steps
+        kernels = sorted(((e.key, e.device_time_total / profiled_steps / 1e3,
+                           e.count / profiled_steps)
+                          for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA),
+                         key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels) if kernels else None
     train_step_ms = statistics.median(step_ms)
+    b, t = batch.observations.shape[:2]
     route = dict(train_step_ms=train_step_ms, train_step_ms_all=step_ms,
-                 train_frames_per_sec=TRAIN_BATCH * TRAIN_FRAMES / (train_step_ms / 1e3),
-                 train_batch_size=TRAIN_BATCH, train_frames=TRAIN_FRAMES,
+                 train_frames_per_sec=b * t / (train_step_ms / 1e3),
+                 train_batch_size=b, train_frames=t,
                  peak_memory_gib=peak_gib, profiled_step_wall_ms=wall_ms,
                  step_device_busy_ms=busy_ms,
                  device_idle_share=None if busy_ms is None else 1 - busy_ms / train_step_ms,
-                 kernels_per_step=sum(k[2] for k in kernels))
-    emit(phase="train_time", dtype="bf16", way=way, **route)
-    emit(phase="train_step_breakdown", way=way, **breakdown(kernels, 25))
+                 kernels_per_step=sum(k[2] for k in kernels) if kernels else None)
+    emit(phase="train_time", run=run, dtype="bf16", way=way, **route)
+    if kernels:
+        emit(phase="train_step_breakdown", run=run, way=way, **breakdown(kernels, 25))
     return route
 
 
@@ -1433,22 +1619,29 @@ def time_train_both_ways(graphed: Trainer, batch) -> dict:
     return route
 
 
-def loop_datasets(config: dict) -> dict:
-    """Each split's synthetic moving-square videos (LOOP_VIDEOS of 32 frames
-    at the config's size, seeded), held in memory, so no Pillow is needed."""
+def loop_datasets(config: dict, videos: dict = None, fixed_row: bool = False) -> dict:
+    """Each split's synthetic moving-square videos (``videos``: split ->
+    (count, frames), by default LOOP_VIDEOS of 32 frames) at the config's
+    size, seeded, held in memory, so no Pillow is needed; with
+    ``fixed_row`` the square moves along the frame's bottom rows, where
+    Breakout's platform is."""
     width, height = config["model"]["representation_network"]["target_input_size"]
     transforms = get_final_transforms(config)
     batching = {"train": config["training"]["batching"],
                 "validation": config["evaluation"]["batching"],
                 "test": config["evaluation"]["batching"]}
+    if videos is None:
+        videos = {name: (count, LOOP_VIDEO_FRAMES) for name, count in LOOP_VIDEOS.items()}
+    square = height // 8
     datasets, seed = {}, SEED
-    for name, count in LOOP_VIDEOS.items():
-        videos = [make_moving_square_video(LOOP_VIDEO_FRAMES, height, width, square=height // 8,
-                                           actions_count=config["data"]["actions_count"],
-                                           seed=seed + i, step_pixels=height // 20)
-                  for i in range(count)]
+    for name, (count, frames) in videos.items():
+        split = [make_moving_square_video(frames, height, width, square=square,
+                                          actions_count=config["data"]["actions_count"],
+                                          seed=seed + i, step_pixels=height // 20,
+                                          fixed_y=height - square - 1 if fixed_row else None)
+                 for i in range(count)]
         seed += count
-        datasets[name] = VideoDataset.from_videos(videos, batching[name], transforms[name])
+        datasets[name] = VideoDataset.from_videos(split, batching[name], transforms[name])
     return datasets
 
 
@@ -1584,37 +1777,42 @@ def check_loop_steps(steps: list, pretraining_steps: int) -> None:
              seconds=record["seconds"], launches=record["launches"])
 
 
-def check_evaluation(recorder: LoopRecorder) -> None:
-    """The three passes of the cli's evaluation: each batch's forward
-    launches K1 3 times per dynamics step and K3 once per frozen BatchNorm
-    + LeakyReLU (``EVAL_NORM_SHAPES``: 446 at 8 x 30 frames), K2 never;
-    finite metrics; one-hot samples carry no entropy, and the ground-truth
-    sampler, mapped through the Hungarian matching, scores its own
-    accuracy."""
-    want = {"convlstm_gates": EVAL_GATE_LAUNCHES, "convlstm_gates_bwd": 0,
-            "fused_norm_act": len(EVAL_NORM_SHAPES)}
-    require(len(recorder.forwards) == 6, f"{len(recorder.forwards)} evaluation forwards")
+def check_evaluation(recorder: LoopRecorder, batch: int = LOOP_BATCH, frames: int = EVAL_FRAMES,
+                     batches: int = 2, norm_shapes: list = EVAL_NORM_SHAPES,
+                     labels: tuple = (None, "one_hot", "gt_actions"), run: str = "01_bair") -> None:
+    """The passes of the cli's evaluation (``labels``; the three of a config
+    with ground-truth actions) of ``batches`` batches of ``batch`` x
+    ``frames``: each batch's forward launches K1 3 times per dynamics step
+    and K3 once per frozen BatchNorm + LeakyReLU (``norm_shapes``: 446 at
+    BAIR's 8 x 30 frames), K2 never; finite metrics; one-hot samples carry
+    no entropy, and the ground-truth sampler, mapped through the Hungarian
+    matching, scores its own accuracy."""
+    want = {"convlstm_gates": 3 * (frames - 1), "convlstm_gates_bwd": 0,
+            "fused_norm_act": len(norm_shapes)}
+    require(len(recorder.forwards) == batches * len(labels),
+            f"{len(recorder.forwards)} evaluation forwards")
     for forward in recorder.forwards:
-        require(forward["frames"] == (LOOP_BATCH, EVAL_FRAMES), forward)
+        require(forward["frames"] == (batch, frames), forward)
         require(forward["launches"] == want, f"evaluation batch launched {forward['launches']}")
-    require([p["label"] for p in recorder.passes] == [None, "one_hot", "gt_actions"],
-            recorder.passes)
+    require([p["label"] for p in recorder.passes] == list(labels), recorder.passes)
     for record in recorder.passes:
         metrics = record["metrics"]
-        require(record["batches"] == 2 and metrics
+        require(record["batches"] == batches and metrics
                 and all(np.isfinite(v) for v in metrics.values()), record)
         prefix = "validation" + (f"/{record['label']}" if record["label"] else "")
-        emit(phase="loop_evaluation", sampler=record["label"] or "gumbel",
-             seconds=record["seconds"], batches=record["batches"],
+        emit(phase="loop_evaluation", run=run, sampler=record["label"] or "gumbel",
+             batch=batch, frames=frames, seconds=record["seconds"], batches=record["batches"],
              seconds_per_batch=record["seconds"] / record["batches"],
              launches_per_batch=want,
              actions_accuracy=metrics[f"{prefix}/actions_accuracy"],
              samples_entropy=metrics[f"{prefix}/samples_entropy"],
              observations_loss=metrics[f"{prefix}/observations_loss/avg"],
              perceptual_loss=metrics[f"{prefix}/perceptual_loss/avg"])
-    one_hot, gt = recorder.passes[1]["metrics"], recorder.passes[2]["metrics"]
-    require(one_hot["validation/one_hot/samples_entropy"] < 1e-5, one_hot)
-    require(gt["validation/gt_actions/actions_accuracy"] > 0.999, gt)
+    metrics = {p["label"]: p["metrics"] for p in recorder.passes}
+    if "one_hot" in metrics:
+        require(metrics["one_hot"]["validation/one_hot/samples_entropy"] < 1e-5, metrics)
+    if "gt_actions" in metrics:
+        require(metrics["gt_actions"]["validation/gt_actions/actions_accuracy"] > 0.999, metrics)
 
 
 def train_loop(root: str) -> tuple:
@@ -1840,10 +2038,10 @@ def write_metric_weights(directory: str) -> None:
     gpu_soak.write_lpips_weights(os.path.join(directory, "lpips_lin.npz"), SEED)
 
 
-def evaluation_config(root: str) -> dict:
-    """BAIR's evaluation config with its outputs under ``root`` and the
-    metric weights in ``root/weights``, checked."""
-    config = copy.deepcopy(BAIR_EVALUATION_CONFIG)
+def evaluation_config(root: str, base: dict = BAIR_EVALUATION_CONFIG) -> dict:
+    """BAIR's evaluation config (or ``base``) with its outputs under
+    ``root`` and the metric weights in ``root/weights``, checked."""
+    config = copy.deepcopy(base)
     config["logging"]["output_root"] = os.path.join(root, "evaluation_results")
     config["tpu"] = {"pretrained_weights_dir": os.path.join(root, "weights")}
     EvaluationConfiguration(config=config).check_config(check_data_root=False)
@@ -1853,18 +2051,26 @@ def evaluation_config(root: str) -> dict:
 class EvaluationRecorder:
     """Within the block, each dataset evaluator's frame-metric batches (the
     five metrics with VGG19, and LPIPS: one graph replay and its readback
-    on the card) and the whole ``compute_metrics`` are timed."""
+    on the card), the generic protocol's detector calls (one per sequence
+    of a batch) and the whole ``compute_metrics`` are timed."""
 
     def __enter__(self):
-        self.frame_s, self.total_s = [], []
-        self._saved = DatasetEvaluator._compute_frame_metrics, DatasetEvaluator.compute_metrics
-        frame_metrics, compute_metrics = self._saved
+        self.frame_s, self.detection_s, self.total_s = [], [], []
+        self._saved = (DatasetEvaluator._compute_frame_metrics,
+                       DatasetEvaluator.compute_detections, DatasetEvaluator.compute_metrics)
+        frame_metrics, detections, compute_metrics = self._saved
         recorder = self
 
         def recorded_frame_metrics(evaluator, reference, generated):
             start = time.perf_counter()
             out = frame_metrics(evaluator, reference, generated)  # ends in a readback
             recorder.frame_s.append(time.perf_counter() - start)
+            return out
+
+        def recorded_detections(evaluator, observations, batch):
+            start = time.perf_counter()
+            out = detections(evaluator, observations, batch)  # host arrays
+            recorder.detection_s.append(time.perf_counter() - start)
             return out
 
         def recorded_compute_metrics(evaluator):
@@ -1874,17 +2080,21 @@ class EvaluationRecorder:
             return out
 
         DatasetEvaluator._compute_frame_metrics = recorded_frame_metrics
+        DatasetEvaluator.compute_detections = recorded_detections
         DatasetEvaluator.compute_metrics = recorded_compute_metrics
         return self
 
     def __exit__(self, *exc_info):
-        DatasetEvaluator._compute_frame_metrics, DatasetEvaluator.compute_metrics = self._saved
+        (DatasetEvaluator._compute_frame_metrics, DatasetEvaluator.compute_detections,
+         DatasetEvaluator.compute_metrics) = self._saved
 
 
-def check_evaluation_dataset(videos: list, frames: int, frame_shape: tuple) -> None:
+def check_evaluation_dataset(videos: list, frames: int, frame_shape: tuple,
+                             actions_count: int = 7, dimension: int = 2) -> None:
     """The builder's videos: uint8 frames of ``frame_shape``, per frame the
-    metadata ``{model, inferred_action, encoded_action}``, ``{model}`` on
-    the last."""
+    metadata ``{model, inferred_action, encoded_action}`` (one of
+    ``actions_count`` actions, a direction of ``dimension``), ``{model}``
+    on the last."""
     for video in videos:
         require(video.get_frames_count() == frames, video.get_frames_count())
         for i in range(frames):
@@ -1893,30 +2103,41 @@ def check_evaluation_dataset(videos: list, frames: int, frame_shape: tuple) -> N
                     (frame.dtype, frame.shape))
         for meta in video.metadata[:-1]:
             require(sorted(meta) == ["encoded_action", "inferred_action", "model"], meta)
-            require(meta["model"] == "ours" and 0 <= meta["inferred_action"] < 7
-                    and len(meta["encoded_action"]) == 2
+            require(meta["model"] == "ours" and 0 <= meta["inferred_action"] < actions_count
+                    and len(meta["encoded_action"]) == dimension
                     and all(math.isfinite(v) for v in meta["encoded_action"]), meta)
         require(video.metadata[-1] == {"model": "ours"}, video.metadata[-1])
 
 
-def check_offline_metrics(metrics: dict, frames: int) -> None:
-    """Every expected key of BAIR's offline evaluation, the markers of the
-    backbones that are not there, and finite numbers, but for the kurtosis
-    of a movement component that does not vary within an action, which is
-    undefined (NaN in both packages)."""
+def check_offline_metrics(metrics: dict, frames: int, detects: bool = False) -> None:
+    """Every expected key of BAIR's offline evaluation (with ``detects``,
+    of a protocol that detects: Breakout's or the generic one), the
+    markers of the backbones that are not there, and finite numbers, but
+    for the kurtosis of a movement component that does not vary within an
+    action, which is undefined (NaN in both packages).  A protocol that
+    detects may find nothing to detect in synthetic videos: its detection
+    and action-space keys, or their markers."""
     for prefix in ("mse", "motion_masked_mse", "psnr", "ssim", "vgg_sim", "lpips"):
         for suffix in ["avg", "var"] + [str(i) for i in range(frames)]:
             require(f"{prefix}/{suffix}" in metrics, f"no {prefix}/{suffix}")
-    markers = ["fid_unavailable", "fvd_unavailable", "detection_unavailable"]
-    if importlib.util.find_spec("sklearn") is None:
-        markers.append("action_classification_unavailable")
+    markers = ["fid_unavailable", "fvd_unavailable"]
+    if detects:
+        require("detection/add/avg" in metrics or "detection_unavailable" in metrics,
+                "neither the detection metric nor its marker")
+        movements = "action_space_unavailable" not in metrics
     else:
-        require("action_classification/linear/accuracy" in metrics, "no SVM accuracy")
+        markers.append("detection_unavailable")
+        movements = True
+    if movements:
+        require("action_variance/avg_variance/global" in metrics, "no action-space statistics")
+        if importlib.util.find_spec("sklearn") is None:
+            markers.append("action_classification_unavailable")
+        else:
+            require("action_classification/linear/accuracy" in metrics, "no SVM accuracy")
     for marker in markers:
         require(marker in metrics, f"no {marker}")
     require("vgg_sim_note" not in metrics and "lpips_unavailable" not in metrics,
             "the converted VGG19 and LPIPS weights were not used")
-    require("action_variance/avg_variance/global" in metrics, "no action-space statistics")
     for key, value in metrics.items():
         if isinstance(value, str):
             continue
@@ -4104,6 +4325,585 @@ def graphed_training_phase(root: str, train_times: dict) -> dict:
     return totals
 
 
+# Phase 20, the paper's Breakout and Tennis experiments (configs/02_breakout.yaml
+# and configs/03_tennis.yaml, with their evaluation configs) at each
+# config's full widths, frame sizes and batch sizes in bf16, from seeded
+# weights, through the entry points a user calls: the play session, the
+# train step, the loader, the training loop with its evaluation, the play
+# CLI, the builder and the offline evaluation (Tennis's with the file's
+# blob detector and with the Faster R-CNN).  Only steps and batch counts
+# are cut (PAPER_OVERRIDES): one pretraining and four full-phase steps at
+# the first steps' 7 frames, an evaluation after the fifth with one batch
+# per pass, a builder batch of the test split.
+PAPER_OVERRIDES = {("training", "pretraining_steps"): 1, ("training", "max_steps"): 5,
+                   ("training", "save_freq"): 5, ("evaluation", "eval_freq"): 5,
+                   ("evaluation", "max_evaluation_batches"): 1}
+# The f32 card-vs-CPU train step's short batch, as phase 8's.
+PAPER_PARITY_BATCH, PAPER_PARITY_FRAMES = 2, 4
+# One pretraining and two full-phase steps of the graphed train step.
+PAPER_TRAIN_STEPS = 3
+# The f32 train step's terms, card against CPU, within rtol 1e-3 or this:
+# the mutual information of untrained action heads is near 0 (Breakout's
+# -1.4e-5), the difference of entropies near log 9 = 2.2 summed in f32,
+# whose rounding (2.2 * 2**-23 = 2.6e-7 per operation) the two devices'
+# summation orders leave apart (1.4e-7 between an H100 and the CPU).
+PAPER_TERMS_ATOL = 1e-6
+# Breakout's R runs at 13x10: an H*W of 130, no multiple of K3's packs.
+RAGGED_NORM_HW = 13 * 10
+
+
+@dataclasses.dataclass(frozen=True)
+class PaperRun:
+    """One of the paper's experiments: its run and evaluation configs; the
+    (B, C, H, W) of its play step's K1 launches (lstm0, lstm1, lstm2) and
+    K3 launches (E's 7, then R's and D's) at batch 1, which
+    tests/test_torch_configs.py pins to the model's calls; its synthetic
+    videos per split, (count, frames): enough for batches of the full
+    training length (the skip spreads Tennis's 12 frames over 56), one
+    evaluation batch and one builder batch of the test split, whose
+    sequences the offline evaluation then takes one by one; and whether
+    the square moves along the bottom rows, as Breakout's platform."""
+    config: dict
+    evaluation: dict
+    gates: tuple
+    norms: tuple
+    videos: dict
+    fixed_row: bool = False
+
+
+PAPER_RUNS = {
+    "breakout": PaperRun(
+        BREAKOUT_CONFIG, BREAKOUT_EVALUATION_CONFIG,
+        gates=((1, 64, 26, 20), (1, 128, 13, 10), (1, 64, 26, 20)),
+        norms=((1, 16, 104, 80), (1, 16, 104, 80), (1, 32, 52, 40), (1, 32, 52, 40),
+               (1, 64, 26, 20), (1, 64, 26, 20), (1, 65, 26, 20),          # E
+               (1, 128, 13, 10), (1, 64, 13, 10), (1, 64, 26, 20),         # R
+               (1, 64, 52, 40), (1, 64, 52, 40), (1, 32, 104, 80), (1, 32, 104, 80),
+               (1, 16, 208, 160)),                                         # D
+        videos={"train": (2, 40), "validation": (2, 40), "test": (16, 32)}, fixed_row=True),
+    "tennis": PaperRun(
+        TENNIS_CONFIG, TENNIS_EVALUATION_CONFIG,
+        gates=((1, 128, 12, 32), (1, 256, 6, 16), (1, 128, 12, 32)),
+        norms=((1, 16, 48, 128), (1, 16, 48, 128), (1, 32, 24, 64), (1, 32, 24, 64),
+               (1, 64, 12, 32), (1, 64, 12, 32), (1, 65, 12, 32),           # E
+               (1, 256, 6, 16), (1, 128, 6, 16), (1, 128, 12, 32),          # R
+               (1, 128, 24, 64), (1, 128, 24, 64), (1, 64, 48, 128), (1, 64, 48, 128),
+               (1, 32, 96, 256)),                                           # D
+        videos={"train": (2, 64), "validation": (2, 31), "test": (2, 31)}),
+}
+
+
+def paper_kernel_shapes(run: PaperRun) -> dict:
+    """Every (B, C, H, W) at which the run's phase 20 calls K1, K2 and K3:
+    K1 at batch 1 (play), the f32 train step's 2, the training batch and
+    the evaluation batch (the evaluator's and the builder's); K2 at the
+    training batches; K3 at the play step's and an evaluation or builder
+    batch's (B*T rows in E and A)."""
+    train = run.config["training"]["batching"]["batch_size"]
+    evaluation = run.config["evaluation"]["batching"]
+    return {"convlstm_gates": unique([(b,) + s[1:] for b in (1, PAPER_PARITY_BATCH, train,
+                                                             evaluation["batch_size"])
+                                      for s in run.gates]),
+            "convlstm_gates_bwd": unique([(b,) + s[1:] for b in (PAPER_PARITY_BATCH, train)
+                                          for s in run.gates]),
+            "fused_norm_act": unique(list(run.norms) + eval_norm_shapes(
+                evaluation["batch_size"], evaluation["observations_count"], list(run.norms)))}
+
+
+PAPER_SHAPES = {name: unique([s for run in PAPER_RUNS.values()
+                              for s in paper_kernel_shapes(run)[name]]) for name in KERNELS}
+
+
+def paper_trainer(config: dict, device="cuda", backend=None) -> Trainer:
+    """The config's trainer (``training.trainer`` or
+    ``training.smooth_mi_trainer``, through the registry) on its model from
+    SEED, without a dataset; ``init_state`` is the caller's."""
+    registry._register_defaults()
+    return registry.resolve("trainer", config["training"]["trainer"])(
+        config, make_model(config, device, SEED), None, Logger(), seed=SEED, backend=backend)
+
+
+def sample_batch(dataset, frames: int, count: int):
+    """The first ``count`` samples of ``frames`` of ``dataset``, collated."""
+    dataset.set_observations_count(frames)
+    return collate([dataset[i] for i in range(count)])
+
+
+def paper_play(config: dict, obs: np.ndarray, actions: np.ndarray) -> dict:
+    """Phase 20a: the config's bf16 model in a graphed ``PlaySession``:
+    start, three ``generate_next`` (the window shifting as
+    ``Caddy.play_step`` shifts it: the new frame first, then the old
+    window's newest frames), a rollout of ROLLOUT_FRAMES: 3 K1 and 15 K3
+    per step, frames finite and in [-1, 1], one synchronisation per
+    rollout; then the step's latency (``generate_next_u8(block=False)``,
+    median and p90 of TIMED_STEPS) and the rollout's frame rate (median of
+    3).  Returns the launches of the checked steps."""
+    name = config["logging"]["run_name"]
+    shape = obs.shape[:2] + (3,)
+    session = PlaySession(make_model(config, "cuda", SEED))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    session.start(obs)
+    for a in actions[:3]:
+        before = session.window.clone()
+        frame = session.generate_next(int(a))
+        check_frame(frame, shape)
+        window = session.window[0]
+        require(np.array_equal(window[..., :3].float().cpu().numpy(), frame)
+                and torch.equal(window[..., 3:], before[0, ..., :-3]),
+                f"{name}: the window did not shift by the new frame")
+    with counted_syncs() as syncs:
+        rollout = session.rollout(actions[:ROLLOUT_FRAMES])
+    launches = read_launches()
+    require(launches == per_frame_launches(3 + ROLLOUT_FRAMES),
+            f"{name}: {3 + ROLLOUT_FRAMES} play steps launched {launches}")
+    require(len(syncs) == 1, f"{name}: the rollout synchronised {len(syncs)} times: {syncs}")
+    require(rollout.dtype == np.uint8 and rollout.shape == (ROLLOUT_FRAMES,) + shape
+            and rollout.std() > 0, (rollout.dtype, rollout.shape))
+    step_ms = synchronised_ms(lambda i: session.generate_next_u8(
+        int(actions[i % ROLLOUT_FRAMES]), block=False), TIMED_STEPS)
+    rollout_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        session.rollout(actions[:ROLLOUT_FRAMES])
+        rollout_s.append(time.perf_counter() - start)
+    emit(phase="paper_play", run=name, window_channels=obs.shape[-1], launches=launches,
+         rollout_syncs=len(syncs), play_step_ms=statistics.median(step_ms),
+         play_step_p90_ms=float(np.percentile(step_ms, 90)),
+         rollout_fps=ROLLOUT_FRAMES / statistics.median(rollout_s),
+         rollout_fps_all=[ROLLOUT_FRAMES / s for s in rollout_s],
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30, card=nvidia_smi())
+    return launches
+
+
+def check_paper_batch(config: dict, dataset) -> None:
+    """Phase 20c: one batch of ``data.loader.DataLoader`` over the train
+    split at the config's full length: (B, T, H, W, 3 * stacking) in [-1,
+    1]; each observation the frames ``skip_frames + 1`` apart going back in
+    time, newest first, clamped at the first frame its sample can reach;
+    the actions those of the observed frames."""
+    b = config["training"]["batching"]
+    stride, stacking = b["skip_frames"] + 1, b["observation_stacking"]
+    width, height = config["model"]["representation_network"]["target_input_size"]
+    dataset.set_observations_count(b["observations_count"])
+    batches = iter(DataLoader(dataset, batch_size=b["batch_size"], shuffle=True, drop_last=True,
+                              num_workers=b["num_workers"], seed=SEED))
+    batch = next(batches)
+    batches.close()
+    transform = get_final_transforms(config)["train"]
+    shape = (b["batch_size"], b["observations_count"], height, width, 3 * stacking)
+    require(batch.observations.shape == shape and batch.observations.dtype == np.float32
+            and batch.observations.min() >= -1 and batch.observations.max() <= 1,
+            (batch.observations.shape, batch.observations.dtype))
+    for row, (video, first) in enumerate(zip(batch.videos, batch.initial_frames)):
+        for t in range(b["observations_count"]):
+            index = first + t * stride
+            frames = [transform(video.get_frame_at(max(index - k * stride, first % stride)))
+                      for k in range(stacking)]
+            require(np.array_equal(batch.observations[row, t], np.concatenate(frames, axis=-1))
+                    and batch.actions[row, t] == video.actions[index],
+                    f"row {row}, observation {t}: not the frames {index} back by {stride}")
+    emit(phase="paper_data", run=config["logging"]["run_name"], batch_shape=shape,
+         skip_frames=b["skip_frames"], observation_stacking=stacking,
+         initial_frames=batch.initial_frames)
+
+
+def paper_train_steps(config: dict, dataset) -> dict:
+    """Phase 20d: the config's trainer graphed (``graphs.TrainProgram``) at
+    its batch and full length: one pretraining and two full-phase steps,
+    each with a finite loss and gradient norms, K1 and K2 3(T-1) times (no
+    per-step checkpointing in these configs), K3 never, one capture per
+    (phase, ground-truth frames); the smooth-MI trainer's program holds the
+    MI matrix as its state, the plain trainer's (Tennis) none; the
+    action-state KL among the terms.  Then both ways (graphed, and op by op
+    from the same seed past its pretraining step) the median of
+    TRAIN_TIMED_STEPS steps (``time_train``, unprofiled: the profiler's
+    bookkeeping of a step's 18 000-25 000 kernels took longer than the
+    steps).  Returns the launches of the checked steps."""
+    name = config["logging"]["run_name"]
+    b = config["training"]["batching"]
+    host = sample_batch(dataset, b["observations_count"], b["batch_size"])
+    batch = SimpleNamespace(observations=torch.as_tensor(host.observations, device="cuda"),
+                            actions=torch.as_tensor(host.actions, device="cuda"))
+    smooth = config["training"]["trainer"] == "training.smooth_mi_trainer"
+    length = b["observations_count"]
+    want = {"convlstm_gates": 3 * (length - 1), "convlstm_gates_bwd": 3 * (length - 1),
+            "fused_norm_act": 0}
+    trainer = paper_trainer(config)
+    trainer.init_state()
+    require(trainer.smooth_mi == smooth, trainer.smooth_mi)
+    totals, keys, steps = dict.fromkeys(KERNELS, 0), set(), []
+    for step in range(PAPER_TRAIN_STEPS):
+        reset_launches()
+        metrics = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        require(launches == want, f"{name}: train step {step + 1} launched {launches}")
+        add_launches(totals, launches)
+        norms = {k: v for k, v in metrics.items() if k.startswith("grad_norm/")}
+        require(metrics["pretraining"] == float(step == 0)
+                and np.isfinite(metrics["loss"]) and norms["grad_norm/global"] > 0
+                and all(np.isfinite(v) for v in norms.values())
+                and np.isfinite(metrics["action_state_distribution_kl_loss"]),
+                f"{name}: step {step + 1}: {metrics}")
+        keys.add((metrics["pretraining"], metrics["ground_truth_observations"]))
+        require(trainer.captures == len(keys),
+                f"{name}: step {step + 1}: {trainer.captures} captures for {len(keys)} keys")
+        state = trainer._program.state
+        require(state == [] if not smooth else (len(state) == 1
+                                                 and state[0] is trainer.state.mi_matrix),
+                f"{name}: the program's state {[tuple(t.shape) for t in state]}")
+        steps.append(dict(step=step + 1, loss=metrics["loss"],
+                          action_state_distribution_kl_loss=metrics[
+                              "action_state_distribution_kl_loss"], **norms))
+    emit(phase="paper_train_steps", run=name, batch=b["batch_size"], frames=length,
+         smooth_mi=smooth, program_state=len(trainer._program.state),
+         captures=trainer.captures, launches_per_step=want, steps=steps)
+    times = {"graphed": time_train(trainer, batch, "graphed", name, profiled_steps=0)}
+    del trainer
+    eager = paper_trainer(config, backend=graphs.Eager)
+    eager.init_state()
+    for _ in range(2):  # pretraining, then the first full-phase step
+        eager.train_step(batch)
+    times["eager"] = time_train(eager, batch, "eager", name, profiled_steps=0)
+    del eager
+    emit(phase="paper_train_time", run=name, graphed_ms=times["graphed"]["train_step_ms"],
+         eager_ms=times["eager"]["train_step_ms"],
+         speedup=times["eager"]["train_step_ms"] / times["graphed"]["train_step_ms"],
+         card=nvidia_smi())
+    return totals
+
+
+def paper_train_parity(config: dict, dataset) -> None:
+    """Phase 20e: one f32 full-phase step of the config's trainer on a short
+    batch of its train split (PAPER_PARITY_BATCH x PAPER_PARITY_FRAMES, 2
+    ground-truth frames), card against CPU (``compare_train_steps``): K1
+    and K2 9 times, the loss and terms within rtol 1e-3 or
+    PAPER_TERMS_ATOL, the gradient norms within rtol 1e-2."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = copy.deepcopy(config)
+    f32["tpu"]["compute_dtype"] = "float32"
+    f32["training"]["pretraining_steps"] = 0
+    f32["training"]["ground_truth_observations_start"] = 2
+    f32["training"]["ground_truth_observations_end"] = 2
+    batch = sample_batch(dataset, PAPER_PARITY_FRAMES, PAPER_PARITY_BATCH)
+    steps = 3 * (PAPER_PARITY_FRAMES - 1)
+    compare_train_steps(lambda device: paper_trainer(f32, device, graphs.Eager), batch,
+                        {"convlstm_gates": steps, "convlstm_gates_bwd": steps,
+                         "fused_norm_act": 0}, run=config["logging"]["run_name"],
+                        terms_atol=PAPER_TERMS_ATOL, checkpointed=False,
+                        trainer=config["training"]["trainer"])
+
+
+def paper_loop(config: dict, datasets: dict, norms: list) -> dict:
+    """Phase 20f: ``cli.train.train`` on the config with PAPER_OVERRIDES:
+    every step checked as phase 10 checks them (``check_loop_steps``), the
+    evaluation after the fifth at the config's evaluation batch, one batch
+    per pass, with the three passes where the data carries actions
+    (Breakout) and the Gumbel one otherwise (Tennis), each batch's
+    launches those of ``eval_norm_shapes`` of the play step's ``norms``
+    (``check_evaluation``); ``latest`` saved.  Prints the loop's step
+    period (the median from one full-phase step's start to the next), the
+    evaluation's seconds per batch and peak memory.  Returns the
+    launches."""
+    name = config["logging"]["run_name"]
+    e = config["evaluation"]["batching"]
+    labels = ((None, "one_hot", "gt_actions") if config["data"]["ground_truth_available"]
+              else (None,))
+    with LoopRecorder() as recorder:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        trainer = train(config, device="cuda", datasets=datasets)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    del trainer
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps, pretraining = config["training"]["max_steps"], config["training"]["pretraining_steps"]
+    require([r["step"] for r in recorder.steps] == list(range(1, steps + 1)),
+            [r["step"] for r in recorder.steps])
+    check_loop_steps(recorder.steps, pretraining)
+    check_evaluation(recorder, e["batch_size"], e["observations_count"], 1,
+                     eval_norm_shapes(e["batch_size"], e["observations_count"], norms), labels,
+                     name)
+    require("latest" in os.listdir(config["logging"]["save_root_directory"]),
+            os.listdir(config["logging"]["save_root_directory"]))
+    starts = [r["start"] for r in recorder.steps]
+    periods_ms = [(b - a) * 1e3 for a, b in zip(starts[pretraining:], starts[pretraining + 1:])]
+    emit(phase="paper_loop", run=name, batch=config["training"]["batching"]["batch_size"],
+         frames=recorder.steps[-1]["metrics"]["observations_count"],
+         loop_step_ms=statistics.median(periods_ms), loop_step_periods_ms=periods_ms,
+         step_seconds=[r["seconds"] for r in recorder.steps],
+         evaluation_s_per_batch={p["label"] or "gumbel": p["seconds"] / p["batches"]
+                                 for p in recorder.passes},
+         peak_memory_gib=peak_gib, launches=launches, card=nvidia_smi())
+    return launches
+
+
+def paper_play_cli(config: dict, validation) -> dict:
+    """Phase 20g: ``cli.play.load_play_session`` on the loop's ``latest``
+    and its scripted rollout of AFTER_ROLLOUT_FRAMES: 3 K1 + 15 K3 per
+    frame, one synchronisation, uint8 frames; frames/s over 3 more
+    rollouts.  Returns the scripted rollout's launches."""
+    name = config["logging"]["run_name"]
+    width, height = config["model"]["representation_network"]["target_input_size"]
+    session, _, logger = load_play_session(config, device="cuda", dataset=validation)
+    require(not session.model.training, f"{name}: the play model is in training mode")
+    reset_launches()
+    with counted_syncs() as syncs:
+        frames, actions = scripted_rollout(session, config["data"]["actions_count"],
+                                           AFTER_ROLLOUT_FRAMES, logger)
+    launches = read_launches()
+    require(launches == per_frame_launches(AFTER_ROLLOUT_FRAMES),
+            f"{name}: the scripted rollout launched {launches}")
+    require(len(syncs) == 1, f"{name}: the scripted rollout synchronised {len(syncs)} times")
+    require(frames.dtype == np.uint8 and frames.shape == (AFTER_ROLLOUT_FRAMES, height, width, 3)
+            and frames.std() > 0, (frames.dtype, frames.shape))
+    rollout_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        session.rollout(np.asarray(actions))
+        rollout_s.append(time.perf_counter() - start)
+    emit(phase="paper_play_cli", run=name, frames=AFTER_ROLLOUT_FRAMES, launches=launches,
+         rollout_syncs=len(syncs), frames_per_s=AFTER_ROLLOUT_FRAMES / statistics.median(rollout_s),
+         frames_per_s_all=[AFTER_ROLLOUT_FRAMES / s for s in rollout_s])
+    return launches
+
+
+def paper_builder(config: dict, test, norms: list) -> tuple:
+    """Phase 20h: ``cli.build_evaluation_dataset``'s builder on the loop's
+    ``latest`` over the test split (one batch at the evaluation batching,
+    ``ground_truth_observations_init`` 4), twice: first with its capture,
+    then replays only, the same videos bit for bit; each batch K1 3(T-1)
+    and K3 ``eval_norm_shapes`` times, no K2; uint8 frames and the
+    metadata; seconds per batch and peak memory.  Returns (the first
+    build's launches, the videos)."""
+    name = config["logging"]["run_name"]
+    e = config["evaluation"]["batching"]
+    actions = config["model"]["action_network"]
+    width, height = config["model"]["representation_network"]["target_input_size"]
+    builder = make_evaluation_dataset_builder(config, device="cuda", dataset=test)
+    forwards, forward = [], builder._forward
+
+    def recorded_forward(*args):
+        before = read_launches()
+        out = forward(*args)
+        forwards.append(launches_since(before))
+        return out
+
+    builder._forward = recorded_forward
+    builds, seconds = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    for _ in range(2):
+        start = time.perf_counter()
+        builds.append(builder.build_videos())  # each batch read back
+        seconds.append(time.perf_counter() - start)
+        if len(builds) == 1:
+            launches = read_launches()
+    want = {"convlstm_gates": 3 * (e["observations_count"] - 1), "convlstm_gates_bwd": 0,
+            "fused_norm_act": len(eval_norm_shapes(e["batch_size"], e["observations_count"],
+                                                   norms))}
+    batches = len(forwards) // 2
+    require(batches == math.ceil(len(test) / e["batch_size"]) and all(f == want for f in forwards),
+            f"{name}: builder batches launched {forwards}")
+    videos = builds[0]
+    require(len(videos) == len(test), len(videos))
+    for got, again in zip(videos, builds[1]):
+        for i in range(got.get_frames_count()):
+            require(np.array_equal(got.get_frame_at(i), again.get_frame_at(i)),
+                    f"{name}: the builder's replays differ from its first build")
+        require(got.metadata == again.metadata, f"{name}: the metadata differ")
+    check_evaluation_dataset(videos, e["observations_count"], (height, width, 3),
+                             config["data"]["actions_count"], actions["action_space_dimension"])
+    emit(phase="paper_builder", run=name, batches=batches, batch=e["batch_size"],
+         frames=e["observations_count"], launches_per_batch=forwards[0],
+         seconds_first=seconds[0], seconds_per_batch_first=seconds[0] / batches,
+         seconds_per_batch=seconds[1] / batches,
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30, card=nvidia_smi())
+    return launches, videos
+
+
+def paper_evaluation(run: PaperRun, root: str, test_videos: list, videos: list,
+                     detector: str = None) -> int:
+    """Phase 20i: ``cli.evaluate_dataset`` with the run's evaluation config
+    (``detector`` in place of its own), the test split against the
+    builder's videos in memory, random VGG19 and LPIPS weights (and for
+    ``frcnn`` a random ``frcnn.npz``, phase 14's, found through
+    ``tpu.pretrained_weights_dir``) in the converter's layout: every metric
+    key of its protocol or its marker (``check_offline_metrics``: synthetic
+    videos may hold nothing to detect), ``data.yml``; seconds per batch,
+    split into the frame metrics and the rest, and the detector's ms per
+    frame (the median call, the first one's capture apart); with
+    ``frcnn`` K4 NMS_LAUNCHES_PER_CALL x 3 times per detector call.  Returns
+    K4's launches."""
+    config = evaluation_config(root, run.evaluation)
+    name = config["logging"]["run_name"]
+    if detector is not None:
+        config["evaluation"]["detector"] = detector
+    weights = config["tpu"]["pretrained_weights_dir"]
+    if not os.path.isdir(weights):
+        os.makedirs(weights)
+        write_metric_weights(weights)
+    if detector == "frcnn":
+        save_variables_npz(frcnn_weights(), os.path.join(weights, pretrained.WEIGHT_FILES["frcnn"]))
+    reference_transform, generated_transform = get_evaluation_transforms(config)
+    batching = config["evaluation"]["batching"]
+    pair = (VideoDataset.from_videos(test_videos, batching, reference_transform),
+            VideoDataset.from_videos(videos, batching, generated_transform))
+    require(len(pair[0]) == len(pair[1]) == len(videos), (len(pair[0]), len(pair[1])))
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with EvaluationRecorder() as timing:
+        metrics = evaluate_dataset(config, device="cuda", datasets=pair)
+    nms_launches = nms_keep.launches
+    frames = batching["observations_count"]
+    check_offline_metrics(metrics, frames, detects=True)
+    require(os.path.isfile(os.path.join(config["logging"]["output_directory"], "data.yml")),
+            "no data.yml")
+    batches = len(timing.frame_s)
+    calls = len(timing.detection_s)
+    if detector == "frcnn":
+        require(nms_launches == 3 * NMS_LAUNCHES_PER_CALL * calls and calls == 2 * batches,
+                f"{name}: {nms_launches} K4 launches in {calls} detector calls")
+    else:
+        require(nms_launches == 0, f"{name}: {nms_launches} K4 launches without the detector")
+    frame_s, total_s = sum(timing.frame_s), timing.total_s[0]
+    emit(phase="paper_evaluation", run=name, evaluator=config["evaluation"]["evaluator"],
+         detector=config["evaluation"]["detector"], batches=batches, frames=frames,
+         keys=len(metrics), seconds=total_s, seconds_per_batch=total_s / batches,
+         frame_metrics_s_per_batch=frame_s / batches,
+         rest_s_per_batch=(total_s - frame_s) / batches,
+         detector_calls=calls, detector_ms_per_frame=calls and (
+             statistics.median(timing.detection_s[1:] or timing.detection_s) * 1e3 / frames),
+         detector_first_call_s=calls and timing.detection_s[0],
+         nms_launches=nms_launches, nms_launches_per_call=calls and nms_launches / calls,
+         markers=sorted(k for k in metrics if k.endswith("_unavailable")),
+         detection_rate={k: metrics[k] for k in metrics if k.startswith("detection/detection_rate")},
+         psnr_avg=metrics["psnr/avg"], lpips_avg=metrics["lpips/avg"],
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30, card=nvidia_smi())
+    return nms_launches
+
+
+def time_paper_kernels(run: PaperRun, gen) -> None:
+    """Phase 20j: K1 at the run's play and training shapes, K2 at its
+    training shapes, K3 at its play step's shapes and the three largest of
+    an evaluation batch (bf16, warm and cold, beside the bound and the
+    plain version's time)."""
+    dtype, size = torch.bfloat16, 2
+    shapes = paper_kernel_shapes(run)
+    train = run.config["training"]["batching"]["batch_size"]
+    for shape in unique(list(run.gates) + [(train,) + s[1:] for s in run.gates]):
+        elements = math.prod(shape)
+        kernel_time("convlstm_gates", shape, fused_lstm_gates, _gate_math,
+                    lambda: gate_inputs(shape, dtype, gen), elements * 7 * size,
+                    elements * GATE_OPS_PER_ELEMENT)
+        if shape[0] == train:
+            kernel_time("convlstm_gates_bwd", shape, fused_lstm_gates_bwd, _gate_math_bwd,
+                        lambda: gate_backward_inputs(shape, dtype, gen), elements * 12 * size,
+                        elements * GATE_BWD_OPS_PER_ELEMENT)
+    evaluation = sorted(set(shapes["fused_norm_act"]) - set(run.norms), key=math.prod,
+                        reverse=True)[:3]
+    for shape in unique(list(run.norms)) + evaluation:
+        elements = math.prod(shape)
+        kernel_time("fused_norm_act", shape, fused_batch_norm_leaky_relu,
+                    _batch_norm_leaky_relu, lambda: norm_inputs(shape, dtype, gen),
+                    elements * 2 * size + 16 * shape[1], elements * NORM_OPS_PER_ELEMENT)
+
+
+def paper_run(root: str, run: PaperRun) -> tuple:
+    """Phase 20 for one experiment, in ``root``: play (a), its f32 parity
+    (b, ``route_parity``), the loader (c), the train step (d) and its f32
+    parity (e), the loop (f), the play CLI (g), the builder (h) and the
+    offline evaluation (i; Tennis's also with ``frcnn``), each part's
+    seconds printed.  Returns the launches of K1-K3 on its main path (a, d,
+    f, g, h) and K4's (i)."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = loop_config(root, run.config, PAPER_OVERRIDES)
+    name = config["logging"]["run_name"]
+    width, height = config["model"]["representation_network"]["target_input_size"]
+    stacking = config["training"]["batching"]["observation_stacking"]
+    datasets = loop_datasets(config, run.videos, run.fixed_row)
+    rng = np.random.default_rng(SEED + 20)
+    obs = rng.uniform(-1, 1, (height, width, 3 * stacking)).astype(np.float32)
+    actions = rng.integers(0, config["data"]["actions_count"], ROLLOUT_FRAMES)
+    totals = dict.fromkeys(KERNELS, 0)
+    mark = phase_clock()
+    add_launches(totals, paper_play(config, obs, actions))
+    mark(f"20a {name}")
+    f32 = copy.deepcopy(config)
+    f32["tpu"]["compute_dtype"] = "float32"
+    route_parity(obs, actions, lambda device: make_model(f32, device, SEED), name)
+    torch.backends.cudnn.allow_tf32 = True
+    mark(f"20b {name}")
+    check_paper_batch(config, datasets["train"])
+    mark(f"20c {name}")
+    add_launches(totals, paper_train_steps(config, datasets["train"]))
+    mark(f"20d {name}")
+    paper_train_parity(config, datasets["train"])
+    torch.backends.cudnn.allow_tf32 = True
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark(f"20e {name}")
+    add_launches(totals, paper_loop(config, datasets, list(run.norms)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark(f"20f {name}")
+    add_launches(totals, paper_play_cli(config, datasets["validation"]))
+    mark(f"20g {name}")
+    builder_launches, videos = paper_builder(config, datasets["test"], list(run.norms))
+    add_launches(totals, builder_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark(f"20h {name}")
+    test_videos = datasets["test"].all_videos
+    nms_launches = paper_evaluation(run, root, test_videos, videos)
+    if run.evaluation["evaluation"]["evaluator"] == "evaluation.dataset_evaluator":
+        nms_launches += paper_evaluation(run, root, test_videos, videos, "frcnn")
+    mark(f"20i {name}")
+    return totals, nms_launches
+
+
+def paper_phase(root: str, gen) -> tuple:
+    """Phase 20: each of PAPER_RUNS (``paper_run``), the shapes of every K1,
+    K2 and K3 call it made (the card's and the CPU's) among those phase 3
+    held bit for bit (``paper_kernel_shapes``), and its kernels timed at
+    its new shapes (``time_paper_kernels``).  Returns the launches of
+    K1-K3 and of K4 on the main paths."""
+    totals, nms_launches = dict.fromkeys(KERNELS, 0), 0
+    for name, run in PAPER_RUNS.items():
+        start = time.perf_counter()
+        with KernelShapes() as recorded:
+            launches, nms = paper_run(os.path.join(root, name), run)
+        checked = paper_kernel_shapes(run)
+        for kernel, calls in recorded.shapes.items():
+            unchecked = {s for s, _ in calls} - set(checked[kernel])
+            require(not unchecked, f"{name}: {kernel} ran at shapes phase 3 did not check: "
+                                   f"{sorted(unchecked)}")
+        start_kernels = time.perf_counter()
+        time_paper_kernels(run, gen)
+        emit(phase="phase_seconds", phases=f"20j {name}",
+             seconds=time.perf_counter() - start_kernels)
+        add_launches(totals, launches)
+        nms_launches += nms
+        emit(phase="paper_run", run=name, seconds=time.perf_counter() - start,
+             launches=launches, nms_launches=nms,
+             kernel_shapes={kernel: sorted(f"{DTYPE_NAMES[d]} {s}" for s, d in calls)
+                            for kernel, calls in recorded.shapes.items()})
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(phase="paper_phase", launches=totals, nms_launches=nms_launches)
+    return totals, nms_launches
+
+
 KERNEL_NAME = re.compile(r"\d+([a-z_]+?_kernel)I(13__nv_bfloat16|f)(?:Li(\d+)E)?")
 PTXAS_KERNEL = re.compile(r"(?:Compiling entry function '|Function properties for )([\w$]+)")
 PTXAS_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
@@ -4179,6 +4979,18 @@ def check_norm_call(model, gen) -> None:
     emit(phase="norm_call", channels=norm.weight.shape[0], kernels=kernels)
 
 
+def phase_clock():
+    """A function that emits, for the phases named, the seconds since it
+    was last called (or made)."""
+    last = [time.perf_counter()]
+
+    def mark(phases: str) -> None:
+        now = time.perf_counter()
+        emit(phase="phase_seconds", phases=phases, seconds=now - last[0])
+        last[0] = now
+    return mark
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is False; it needs an "
@@ -4195,10 +5007,12 @@ def main() -> None:
     emit(phase="build", seconds=time.perf_counter() - t0, sources=build.sources(),
          kernels=kernel_report(logs))
 
+    mark = phase_clock()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     errors = check_kernels(gen)
     nms_error = check_nms_kernel(gen)
     check_gate_autograd(gen)
+    mark("3")
 
     rng = np.random.default_rng(SEED)
     obs = rng.uniform(-1, 1, (256, 256, 3)).astype(np.float32)
@@ -4207,11 +5021,13 @@ def main() -> None:
     play_launches = play_route(model, obs, actions)
     check_norm_call(model, gen)
     route_parity(obs, actions)
+    mark("4-5")
 
     sums = time_kernels(gen)
     time_loop_kernels(gen)
     route = time_route(model, obs, actions)
     del model
+    mark("6")
 
     trainer = flagship_trainer()
     batch = device_batch(make_synthetic_batch(
@@ -4222,18 +5038,31 @@ def main() -> None:
     sums["convlstm_gates_bwd"] = time_gate_kernels_in_training(gen)
     train_times = time_train_both_ways(trainer, batch)
     del trainer, batch
+    mark("7-9")
 
     with tempfile.TemporaryDirectory() as root:
         loop_launches, loop_step_ms = train_loop(root)
+        mark("10")
         after_launches, eval_config, pair = after_training(root)
+        mark("11")
         distribution_metrics(root, eval_config, pair)
+        mark("12")
         soak_launches = convergence_soak_phase(root, gen)
+        mark("13")
         detector = detector_phase(root)
+        mark("14")
         parallel_launches, phase15 = data_parallel_phase(root)
+        mark("15")
         tensor_parallel_launches = tensor_parallel_phase(root, phase15)
+        mark("16")
         tools_launches = tools_phase(root, loop_step_ms)
+        mark("17")
         graphed_launches = graphed_routes_phase(root, route)
+        mark("18")
         graphed_training_launches = graphed_training_phase(root, train_times)
+        mark("19")
+        paper_launches, paper_nms_launches = paper_phase(root, gen)
+        mark("20")
 
     kernels = [dict(name=name, route="cuda",
                     source=f"playablevideogeneration_tpu_torch/ops/cuda/csrc/{source}.cu",
@@ -4242,17 +5071,18 @@ def main() -> None:
                               + after_launches[name] + soak_launches[name]
                               + parallel_launches[name] + tensor_parallel_launches[name]
                               + tools_launches[name] + graphed_launches[name]
-                              + graphed_training_launches[name]),
+                              + graphed_training_launches[name] + paper_launches[name]),
                     max_abs_err=errors[name], ms=sums[name]["ms"],
                     cold_ms=sums[name]["cold_ms"],
                     plain_ms=sums[name]["plain_ms"], bound_ms=sums[name]["bound_ms"],
                     bound_by=sums[name]["bound_by"], library_ms=None)
                for name, (source, replaces) in KERNELS.items()]
     # K4's times are per 16-frame detector call (its three nms_keep calls,
-    # six launches), its launches those of phase 14's main path; no PyTorch
-    # call computes greedy NMS (torchvision's nms is not on the card's
-    # machine).
-    kernels.append(dict(NMS_KERNEL, route="cuda", launches=detector["launches"],
+    # six launches), its launches those of phase 14's main path and of
+    # phase 20's Tennis evaluation with frcnn; no PyTorch call computes
+    # greedy NMS (torchvision's nms is not on the card's machine).
+    kernels.append(dict(NMS_KERNEL, route="cuda",
+                        launches=detector["launches"] + paper_nms_launches,
                         max_abs_err=max(nms_error, detector["max_abs_err"]),
                         **{key: detector["times"][key]
                            for key in ("ms", "cold_ms", "plain_ms", "bound_ms", "bound_by")},
