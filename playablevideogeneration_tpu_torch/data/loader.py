@@ -32,9 +32,12 @@ from typing import Iterator, Optional
 import numpy as np
 
 from playablevideogeneration_tpu_torch.data.video_dataset import Batch, VideoDataset, collate
+from playablevideogeneration_tpu_torch.utils import tracing
 
 # How long a process-mode batch may take before its worker counts as dead.
 WORKER_TIMEOUT_S = 300.0
+# The consumer's taking of one batch, its wait for the workers included.
+_GET = tracing.span("loader.get")
 # The dataset of a forked pool worker; set in the worker only, by the
 # pool's initializer (the fork hands the dataset over without pickling it).
 _WORKER_DATASET: Optional[VideoDataset] = None
@@ -56,7 +59,8 @@ class DataLoader:
     """Iterates shuffled, collated batches with background prefetch; an
     incomplete last batch is dropped when ``drop_last``.  With
     ``local_world`` above 1 each batch holds this rank's ``batch_size /
-    local_world`` rows of it."""
+    local_world`` rows of it.  Taking each batch, the wait for the workers
+    included, is the span ``loader.get`` (``utils.tracing``)."""
 
     def __init__(self, dataset: VideoDataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, num_workers: int = 2, prefetch: int = 2,
@@ -110,7 +114,8 @@ class DataLoader:
                 # Bounded: a worker killed mid-batch is replaced by the pool,
                 # but its batch never arrives.
                 try:
-                    batch = pending.popleft().get(timeout=WORKER_TIMEOUT_S)
+                    with _GET:
+                        batch = pending.popleft().get(timeout=WORKER_TIMEOUT_S)
                 except mp.TimeoutError:
                     raise RuntimeError(
                         f"process-mode loader worker produced no batch within "
@@ -163,7 +168,7 @@ class DataLoader:
             t.start()
         try:
             for i in range(len(batches)):
-                with cond:
+                with _GET, cond:
                     next_needed[0] = i
                     cond.notify_all()
                     while i not in results:

@@ -70,6 +70,10 @@ modes chosen when it recorded), is a new key.  ``replayed`` makes a
 stateless function of host tensors, the offline evaluation's backbones
 and metrics, into such programs.
 
+A capture (warm-up and recording) is the span ``program.capture``, a
+call the span ``program.replay`` (``utils.tracing``): their counts are
+the process's captures against its replays.
+
 ``CudaGraph`` records and replays.  ``StandIn``, the one test seam, calls
 ``fn`` on the same static buffers where the graph would replay, so that
 the CPU tests hold the buffer handling; ``backend_for`` never chooses it.
@@ -95,10 +99,13 @@ from playablevideogeneration_tpu_torch.ops.cuda.fused_norm_act import (
     fused_batch_norm_leaky_relu,
 )
 from playablevideogeneration_tpu_torch.ops.cuda.nms_sweep import nms_keep
+from playablevideogeneration_tpu_torch.utils import tracing
 
 # The kernel wrappers whose ``launches`` a program keeps.
 COUNTED = (fused_lstm_gates, fused_lstm_gates_bwd, fused_batch_norm_leaky_relu, nms_keep)
 WARMUP_CALLS = 2
+_CAPTURE = tracing.span("program.capture")
+_REPLAY = tracing.span("program.replay")
 # The programs a ``ProgramCache`` keeps, as the JAX evaluator keeps its
 # jitted forwards.
 PROGRAMS = 6
@@ -291,22 +298,24 @@ class Program:
         return self._versions() != self._captured_versions
 
     def _capture(self) -> None:
-        self._require_mode()
-        device = next(itertools.chain(self.state, self.inputs)).device
-        self._backend = None  # the previous graph and its pool go first
-        backend = self._backend_type(device)
-        counts = _counts()
-        restore = self._save()
-        backend.warm_up(lambda: self.fn(*self.state, *self.inputs), WARMUP_CALLS)
-        restore()
-        _set_counts(counts)
-        backend.capture(self._run, self.generators)
-        self._delta = [after - before for after, before in zip(_counts(), counts)]
-        _set_counts(counts)
-        self._watched = list(itertools.chain(self.model.parameters(), self.model.buffers()))
-        self._captured_versions = self._versions()
-        self._backend = backend
-        self.captures += 1
+        with _CAPTURE:
+            self._require_mode()
+            device = next(itertools.chain(self.state, self.inputs)).device
+            self._backend = None  # the previous graph and its pool go first
+            backend = self._backend_type(device)
+            counts = _counts()
+            restore = self._save()
+            backend.warm_up(lambda: self.fn(*self.state, *self.inputs), WARMUP_CALLS)
+            restore()
+            _set_counts(counts)
+            backend.capture(self._run, self.generators)
+            self._delta = [after - before for after, before in zip(_counts(), counts)]
+            _set_counts(counts)
+            self._watched = list(itertools.chain(self.model.parameters(),
+                                                 self.model.buffers()))
+            self._captured_versions = self._versions()
+            self._backend = backend
+            self.captures += 1
 
     def _replayed(self) -> None:
         """What follows a replay: the launch counters moved as an eager call
@@ -317,14 +326,15 @@ class Program:
     def __call__(self, *values: torch.Tensor):
         """Copies ``values`` into the static inputs and replays; returns the
         static outputs, which the next call overwrites."""
-        self._require_mode()
-        if self._stale():
-            self._capture()
-        for static, value in zip(self.inputs, values):
-            static.copy_(value)
-        self._backend.replay()
-        self._replayed()
-        return self._backend.outputs
+        with _REPLAY:
+            self._require_mode()
+            if self._stale():
+                self._capture()
+            for static, value in zip(self.inputs, values):
+                static.copy_(value)
+            self._backend.replay()
+            self._replayed()
+            return self._backend.outputs
 
 
 class TrainProgram(Program):

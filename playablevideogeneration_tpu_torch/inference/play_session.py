@@ -17,6 +17,10 @@ The carries and the window are the session's own static buffers, which
 copied into static inputs before each replay, the noise drawn outside the
 graph from the session's generator, as the JAX session draws it outside
 ``jit``.  On the CPU the session runs eagerly.
+
+Each call of a method that returns frames is the span ``play.call``, and
+the frames' copy to the host inside it ``play.readback``
+(``utils.tracing``).
 """
 from __future__ import annotations
 
@@ -28,6 +32,10 @@ import torch
 
 from playablevideogeneration_tpu_torch.inference import graphs
 from playablevideogeneration_tpu_torch.models.caddy import Caddy
+from playablevideogeneration_tpu_torch.utils import tracing
+
+_CALL = tracing.span("play.call")
+_READBACK = tracing.span("play.readback")
 
 
 def _to_uint8(frame: torch.Tensor) -> torch.Tensor:
@@ -37,7 +45,8 @@ def _to_uint8(frame: torch.Tensor) -> torch.Tensor:
 
 def _to_host(tensor: torch.Tensor) -> np.ndarray:
     """A numpy copy that no later step overwrites, on any device."""
-    return tensor.to("cpu", copy=True).numpy()
+    with _READBACK:
+        return tensor.to("cpu", copy=True).numpy()
 
 
 class PlaySession:
@@ -144,37 +153,43 @@ class PlaySession:
     def generate_next(self, action: int) -> np.ndarray:
         """One interactive step; returns the (H, W, 3) frame in [-1, 1] as
         float32 (numpy has no bfloat16)."""
-        frame, _ = self._call("step", self._step, self._onehot(action), self._variations(1))
-        return _to_host(frame)
+        with _CALL:
+            frame, _ = self._call("step", self._step, self._onehot(action),
+                                  self._variations(1))
+            return _to_host(frame)
 
     def generate_next_u8(self, action: int, block: bool = True):
         """One interactive step returning a display-ready (H, W, 3) uint8
         frame, converted on the device.  With ``block=False`` a device
         tensor of its own is returned, so its readback can overlap the
         next step."""
-        _, frame = self._call("step", self._step, self._onehot(action), self._variations(1))
-        return _to_host(frame) if block else frame.clone()
+        with _CALL:
+            _, frame = self._call("step", self._step, self._onehot(action),
+                                  self._variations(1))
+            return _to_host(frame) if block else frame.clone()
 
     def generate_next_interpolation(self, first_action: int, second_action: int,
                                     interpolation_factor: float) -> np.ndarray:
         """Action interpolation: the variation moves the selected action's
         centroid along the line between the two actions' centroids."""
-        centroids = self.model.centroids
-        selected = second_action if interpolation_factor > 0.5 else first_action
-        first_c, second_c = centroids[first_action], centroids[second_action]
-        interpolated = (second_c - first_c) * interpolation_factor + first_c
-        variation = (interpolated - centroids[selected])[None]
-        frame, _ = self._call("step", self._step, self._onehot(selected), variation)
-        return _to_host(frame)
+        with _CALL:
+            centroids = self.model.centroids
+            selected = second_action if interpolation_factor > 0.5 else first_action
+            first_c, second_c = centroids[first_action], centroids[second_action]
+            interpolated = (second_c - first_c) * interpolation_factor + first_c
+            variation = (interpolated - centroids[selected])[None]
+            frame, _ = self._call("step", self._step, self._onehot(selected), variation)
+            return _to_host(frame)
 
     def rollout(self, actions: np.ndarray) -> np.ndarray:
         """Scripted rollout of N actions; returns (N, H, W, 3) uint8 frames
         read back in one transfer.  Honors the session's ``noise`` flag
         as the interactive path does."""
-        onehots = torch.cat([self._onehot(action) for action in actions])
-        frames = self._call(("rollout", len(onehots)), self._rollout, onehots,
-                            self._variations(len(onehots)))
-        return _to_host(frames)
+        with _CALL:
+            onehots = torch.cat([self._onehot(action) for action in actions])
+            frames = self._call(("rollout", len(onehots)), self._rollout, onehots,
+                                self._variations(len(onehots)))
+            return _to_host(frames)
 
 
 def frame_to_uint8(frame: np.ndarray) -> np.ndarray:

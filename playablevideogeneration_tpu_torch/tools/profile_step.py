@@ -83,6 +83,9 @@ STEP_RANGE = "profile_step:train_step"
 TRACE_NAME = "train_step.pt.trace.json"
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATEGORIES = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
+# The port's own spans (``utils.tracing.PREFIX``): host ranges recorded as
+# operators, which the host tables leave out as they leave out annotations.
+PORT_SPAN_PREFIX = "pvg."
 FULL_PHASE_STEP = 4  # the step index the JAX tool passes: past pretraining
 
 
@@ -361,7 +364,7 @@ def analyze(trace_path: str) -> dict:
             if p != -1:
                 self_us[p] -= float(host[i].get("dur", 0))
         timed = ((e["name"], self_us[i], i) for i, e in enumerate(host)
-                 if e["cat"] == "cpu_op")
+                 if e["cat"] == "cpu_op" and not e["name"].startswith(PORT_SPAN_PREFIX))
 
     table: Dict[Tuple[str, str], List[float]] = {}
     for name, us, i in timed:

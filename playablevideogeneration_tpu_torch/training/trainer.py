@@ -19,7 +19,10 @@ JAX trainer's ``jax.jit(train_step)`` per ``(T, pretraining)``; Adam and
 the learning-rate schedule run eagerly after each replay, on the graph's
 static gradients.  A new key releases the previous graph first, so at most
 one lives.  On the CPU, through the ``graphs.Eager`` seam and with a
-process group the step runs op by op.
+process group the step runs op by op.  A step is the span ``train.step``,
+and inside it the batch's copy to the device ``train.upload``, Adam and
+the schedule ``train.optimizer`` and the metrics' transfer to the host
+``train.readback`` (``utils.tracing``).
 
 With a process group (``parallel.mesh.init_distributed``) the trainer is
 one rank of the JAX trainer's ``(data, model)`` mesh (``tpu.model_parallel``
@@ -56,7 +59,7 @@ from playablevideogeneration_tpu_torch.parallel import mesh
 from playablevideogeneration_tpu_torch.training import losses, schedules
 from playablevideogeneration_tpu_torch.training.train_state import TrainState
 from playablevideogeneration_tpu_torch.utils import checkpoint as ckpt_lib
-from playablevideogeneration_tpu_torch.utils import pretrained
+from playablevideogeneration_tpu_torch.utils import pretrained, tracing
 from playablevideogeneration_tpu_torch.utils.jax_weights import load_jax_variables
 from playablevideogeneration_tpu_torch.utils.logging import AverageMeter, Logger
 from playablevideogeneration_tpu_torch.utils.reference_checkpoint import (
@@ -67,6 +70,10 @@ from playablevideogeneration_tpu_torch.utils.tensor_ops import sequence_to_nchw
 # Metrics of train_step that train_epoch prints every step.
 _PRINTED = ("loss", "avg_observations_rec_loss", "avg_perceptual_loss", "states_rec_loss",
             "action_mutual_information_loss", "step_time")
+_STEP = tracing.span("train.step")
+_UPLOAD = tracing.span("train.upload")
+_OPTIMIZER = tracing.span("train.optimizer")
+_READBACK = tracing.span("train.readback")
 
 
 def compute_loss_terms(model: Caddy, observations: torch.Tensor, actions: torch.Tensor,
@@ -523,10 +530,16 @@ class Trainer:
         """
         if self.state is None:
             raise RuntimeError("call init_state first")
-        state = self.state
         self.global_step += 1
-        observations = sequence_to_nchw(batch.observations, self.device)
-        actions = torch.as_tensor(batch.actions, device=self.device)
+        with _STEP(global_step=self.global_step):
+            return self._train_step(batch)
+
+    def _train_step(self, batch) -> Dict[str, Any]:
+        """``train_step`` after its global step is taken, inside its span."""
+        state = self.state
+        with _UPLOAD:
+            observations = sequence_to_nchw(batch.observations, self.device)
+            actions = torch.as_tensor(batch.actions, device=self.device)
         t = observations.shape[1]
         pretraining = self.global_step <= self.config["training"]["pretraining_steps"]
         gt_init = min(self.get_ground_truth_observations_count(), t - 1)
@@ -549,16 +562,18 @@ class Trainer:
         else:
             names, outputs = self._replay(observations, actions, temperature, gt_init,
                                           pretraining)
-        state.optimizer.step()
-        state.scheduler.step()
+        with _OPTIMIZER:
+            state.optimizer.step()
+            state.scheduler.step()
         state.step += 1
         self.plot_arrays = outputs["plot_arrays"]
 
-        metrics = dict(zip(names, outputs["values"].tolist()))
-        metrics.update(ground_truth_observations=gt_init, gumbel_temperature=gumbel_t,
-                       observations_count=t, lr=lr, pretraining=float(pretraining))
-        for m, (counts, edges) in outputs["histograms"].items():
-            metrics[f"_grad_hist/{m}"] = (counts.cpu().numpy(), edges.cpu().numpy())
+        with _READBACK:
+            metrics = dict(zip(names, outputs["values"].tolist()))
+            metrics.update(ground_truth_observations=gt_init, gumbel_temperature=gumbel_t,
+                           observations_count=t, lr=lr, pretraining=float(pretraining))
+            for m, (counts, edges) in outputs["histograms"].items():
+                metrics[f"_grad_hist/{m}"] = (counts.cpu().numpy(), edges.cpu().numpy())
         return metrics
 
     # Epoch loop.
