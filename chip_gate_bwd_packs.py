@@ -1,6 +1,7 @@
 """Times the ConvLSTM gate backward kernel (K2) in bf16 with each packed
 width its source can take, 4 and 8 elements per thread (8- and 16-byte
-accesses), at the flagship's training and loop shapes, on one NVIDIA GPU.
+accesses), at the flagship's training and loop shapes, on channels-last
+inputs, on one NVIDIA GPU.
 
 Run from the repository root on a machine with an H100:
 
@@ -33,10 +34,7 @@ import torch
 
 import chip_smoke as smoke
 from playablevideogeneration_tpu_torch.ops.cuda import build
-from playablevideogeneration_tpu_torch.ops.cuda.convlstm_gates import (
-    _BWD_ARGTYPES,
-    _gate_math_bwd,
-)
+from playablevideogeneration_tpu_torch.ops.cuda.convlstm_gates import _argtypes, _gate_math_bwd
 
 WIDTHS = (4, 8)
 PACK_CONSTANT = re.compile(r"constexpr int kBwdPackBf16 = \d+;")
@@ -66,7 +64,7 @@ def build_widths(directory: Path) -> dict:
         smoke.emit(phase="pack_build", width=width, kernels={
             label: entry for label, entry in report.items() if "bwd" in label})
         fn = ctypes.CDLL(str(library)).convlstm_gates_bwd_bf16
-        fn.argtypes = _BWD_ARGTYPES
+        fn.argtypes = _argtypes(6)
         fn.restype = ctypes.c_int
         entries[width] = fn
     return entries
@@ -77,7 +75,7 @@ def launcher(fn, width: int):
         dgates, dc_prev = torch.empty_like(gates), torch.empty_like(c)
         status = fn(gates.data_ptr(), c.data_ptr(), dh.data_ptr(), dc.data_ptr(),
                     dgates.data_ptr(), dc_prev.data_ptr(), c.shape[0], math.prod(c.shape[1:]),
-                    width, c.device.index, torch.cuda.current_stream().cuda_stream)
+                    c.shape[1], width, c.device.index, torch.cuda.current_stream().cuda_stream)
         smoke.require(status == 0, f"width {width}: CUDA error {status}")
         return dgates, dc_prev
     return run
@@ -85,7 +83,7 @@ def launcher(fn, width: int):
 
 def time_width(run, shape, gen) -> tuple:
     """(warm ms, cold ms) of one launch at ``shape``, as kernel_time."""
-    make = lambda: smoke.gate_backward_inputs(shape, torch.bfloat16, gen)  # noqa: E731
+    make = lambda: smoke.stored(smoke.gate_backward_inputs(shape, torch.bfloat16, gen))  # noqa: E731
     args = make()
     warm = smoke.device_ms(lambda: run(*args))
     sets = [args] + [make() for _ in range(math.ceil(
@@ -105,7 +103,7 @@ def main() -> None:
         runs = {w: launcher(fn, w) for w, fn in build_widths(Path(directory)).items()}
         times = {}
         for shape in SHAPES:
-            args = smoke.gate_backward_inputs(shape, torch.bfloat16, gen)
+            args = smoke.stored(smoke.gate_backward_inputs(shape, torch.bfloat16, gen))
             want = _gate_math_bwd(*args)
             for width, run in runs.items():
                 smoke.compare(f"K2 width {width}", shape, torch.bfloat16, run(*args), want)

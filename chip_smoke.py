@@ -32,19 +32,23 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    ragged case (3x65x25x40), a C*H*W that is no multiple of a vector
    (3x5x7x9) and inputs whose storage starts one element into its buffer,
    in f32 and bf16, and K2 at the training and loop shapes, the ragged and
-   unvectored cases and a view one element into its buffer: each must
-   equal its plain version bit for bit, and each case must take the path
-   it should (packs of 4 elements for K1 and K2 and of 16 bytes for K3,
-   or one element per thread where the sizes or the alignment forbid
-   them); K4 (the NMS of score-sorted boxes: the packed IoU > threshold
-   rows, then the sweep) bit for bit at every set shape of a 16-frame
-   detector call (64 and 16 sets of 1000 candidates, 16 of 504), at 1,
-   33, 999 and 1024 candidates, at IoU thresholds 0.5 and 0.7, with every
-   pair or no pair overlapping and on pairs whose f32 IoU sits on the f32
+   unvectored cases and a view one element into its buffer, each on
+   channels-last inputs, the kernels' one storage: each must equal its
+   plain version on the NCHW inputs bit for bit, write its outputs
+   channels-last, and take the path it should (packs of 4 elements for K1
+   and K2 and of 16 bytes for K3, or one element per thread where the
+   channels (K3's 65), the sizes or the alignment forbid them), and each
+   wrapper must refuse CUDA tensors in contiguous NCHW; K4 (the NMS of
+   score-sorted boxes: the packed IoU > threshold rows, then the sweep)
+   bit for bit at every set shape of a 16-frame detector call (64 and 16
+   sets of 1000 candidates, 16 of 504), at 1, 33, 999 and 1024
+   candidates, at IoU thresholds 0.5 and 0.7, with every pair or no pair
+   overlapping and on pairs whose f32 IoU sits on the f32
    threshold or a few ulps either side, and its sweep kernel alone on the
    plain version's rows; and the
    gate update's autograd function (K1 forward, K2 backward) against
-   autograd through the plain gate math (1e-5);
+   autograd through the plain gate math (1e-5), with and without a
+   cotangent for c';
 4. play route: the bf16 flagship (configs/01_bair.yaml, seeded random
    weights and BatchNorm statistics) through ``PlaySession``, whose steps
    and rollouts replay captured CUDA graphs: start, three
@@ -67,7 +71,8 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    op): the step's latency, the interactive uint8 step's, the rollout's
    frame rate, and the step's kernel count, device-time breakdown and idle
    share (a graph's kernels reach the profiler as kernels, without the
-   operators that launched them at capture);
+   operators that launched them at capture), with every NCHW <-> NHWC
+   conversion kernel left in it named (``layout_transposes``);
 7. train route: the bf16 flagship trainer (batch 16, 12 frames, smooth MI,
    per-step activation checkpointing, seeded weights and batch), each step
    a replay of a captured CUDA graph (``graphs.TrainProgram``), takes one
@@ -85,9 +90,9 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
    shapes, warm and cold, beside their bounds and plain versions' times,
    the median bf16 train step, ``train_frames_per_sec`` (B*T per step),
    peak device memory, and the device's busy and idle share and
-   kernel-time breakdown over one profiled step (the port's kernels listed
-   one by one), both ways: phase 7's graphed trainer and one op by op
-   (``graphs.Eager``) from the same seed;
+   kernel-time breakdown over one profiled step (the port's kernels and
+   the NCHW <-> NHWC conversions listed one by one), both ways: phase 7's
+   graphed trainer and one op by op (``graphs.Eager``) from the same seed;
 10. train loop: BAIR's config (``BAIR_CONFIG``, pinned to
    configs/01_bair.yaml by a CPU test, with ``LOOP_OVERRIDES``) through
    ``cli.train.train`` on in-memory synthetic videos at 256x256 (the card's
@@ -425,7 +430,7 @@ from playablevideogeneration_tpu_torch.ops.cuda.nms_sweep import (
 )
 from playablevideogeneration_tpu_torch.parallel import mesh
 from playablevideogeneration_tpu_torch.tools import convergence_soak, gpu_soak, profile_step
-from playablevideogeneration_tpu_torch.tools.profile_step import breakdown
+from playablevideogeneration_tpu_torch.tools.profile_step import breakdown, kernel_group
 from playablevideogeneration_tpu_torch.training.trainer import Trainer
 from playablevideogeneration_tpu_torch.utils.checkpoint import STATE_FILE
 from playablevideogeneration_tpu_torch.utils.logging import Logger
@@ -836,32 +841,51 @@ def bound_ms(bytes_moved: float, operations: float):
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
 
-def on_card(shape, dtype, gen, scale: float = 1.0, offset: int = 0) -> torch.Tensor:
-    """Seeded N(0, scale^2) values in ``dtype``: a contiguous tensor, or
-    with ``offset`` a contiguous view whose storage starts that many
-    elements into its buffer."""
-    values = (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
-    if not offset:
-        return values
-    view = torch.empty(values.numel() + offset, dtype=dtype, device="cuda")[offset:]
-    return view.view(shape).copy_(values)
+def on_card(shape, dtype, gen, scale: float = 1.0) -> torch.Tensor:
+    """Seeded N(0, scale^2) values in ``dtype``, a contiguous tensor
+    (``stored`` moves them to the kernels' storage)."""
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
 
-def gate_inputs(shape, dtype, gen, offset: int = 0):
+def stored(args, offset: int = 0) -> tuple:
+    """``args`` with each 4-D tensor's values in channels-last storage, the
+    kernels', starting ``offset`` elements into a buffer of its own; other
+    tensors as they are."""
+    def store(t):
+        if t.dim() != 4:
+            return t
+        strides = t.contiguous(memory_format=torch.channels_last).stride()
+        buffer = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)[offset:]
+        return buffer.as_strided(t.shape, strides).copy_(t)
+    return tuple(store(t) for t in args)
+
+
+def vector_width(name: str, args, got) -> int:
+    """The width the wrapper chose: K1 walks runs of C of c and gates, K2
+    the same of its inputs and outputs, in packs of GATE_PACK; K3 runs of
+    C of x in 16-byte packs."""
+    if name == "fused_norm_act":
+        return build.vector_width(args[0].shape[1], args[0],
+                                  elements=16 // args[0].element_size())
+    tensors = (args[1], args[0]) if name == "convlstm_gates" else (args[1], args[0],
+                                                                   *args[2:], *got)
+    return build.vector_width(args[1].shape[1], *tensors, elements=GATE_PACK)
+
+
+def gate_inputs(shape, dtype, gen):
     b, c, h, w = shape
-    return on_card((b, 4 * c, h, w), dtype, gen, 2.0, offset), on_card(shape, dtype, gen, 1.0,
-                                                                       offset)
+    return on_card((b, 4 * c, h, w), dtype, gen, 2.0), on_card(shape, dtype, gen, 1.0)
 
 
-def gate_backward_inputs(shape, dtype, gen, offset: int = 0):
-    return gate_inputs(shape, dtype, gen, offset) + tuple(
-        on_card(shape, dtype, gen, 1.0, offset) for _ in range(2))  # dh, dc
+def gate_backward_inputs(shape, dtype, gen):
+    return gate_inputs(shape, dtype, gen) + tuple(
+        on_card(shape, dtype, gen, 1.0) for _ in range(2))  # dh, dc
 
 
-def norm_inputs(shape, dtype, gen, offset: int = 0):
+def norm_inputs(shape, dtype, gen):
     """x and the BatchNorm's raw statistics: scale, bias, mean, var."""
     c = shape[1]
-    x = on_card(shape, dtype, gen, 1.0, offset)
+    x = on_card(shape, dtype, gen, 1.0)
     scale = torch.rand(c, generator=gen, device="cuda") + 0.5
     bias = torch.randn(c, generator=gen, device="cuda") * 0.1
     mean = torch.randn(c, generator=gen, device="cuda") * 0.1
@@ -890,26 +914,29 @@ def compare(name, shape, dtype, got, want) -> float:
 
 
 def check_kernels(gen) -> dict:
-    """Phase 3, K1, K2 and K3; returns the largest error of each kernel.
-    The unvectored shape, the views that start one element into their
-    buffers and K3 at Breakout's 13x10 must run one element per thread, and
-    each kernel must run packs at some flagship shape in each dtype."""
+    """Phase 3, K1, K2 and K3 on channels-last inputs against the plain
+    version on the contiguous NCHW inputs, bit for bit; returns the largest
+    error of each kernel.  The unvectored shape, the views that start one
+    element into their buffers and K3 at 65 channels (E's last BatchNorm)
+    must run one element per thread, and each kernel must run packs at
+    some flagship shape in each dtype.  Each wrapper must refuse CUDA
+    tensors in contiguous NCHW."""
     errors = dict.fromkeys(KERNELS, 0.0)
     for dtype in (torch.float32, torch.bfloat16):
-        cases = [("convlstm_gates", s, o, gate_inputs(s, dtype, gen, o), fused_lstm_gates,
+        cases = [("convlstm_gates", s, o, gate_inputs(s, dtype, gen), fused_lstm_gates,
                   _gate_math)
                  for s, o in [(s, 0) for s in unique(GATE_SHAPES + GATE_TRAIN_SHAPES
                                                      + GATE_LOOP_SHAPES + GATE_RANK_SHAPES
                                                      + GATE_PARITY_SHAPES
                                                      + PAPER_SHAPES["convlstm_gates"])]
                  + [(GATE_RAGGED_SHAPE, 0), (UNVECTORED_SHAPE, 0), (GATE_SHAPES[0], 1)]]
-        cases += [("convlstm_gates_bwd", s, o, gate_backward_inputs(s, dtype, gen, o),
+        cases += [("convlstm_gates_bwd", s, o, gate_backward_inputs(s, dtype, gen),
                    fused_lstm_gates_bwd, _gate_math_bwd)
                   for s, o in [(s, 0) for s in unique(GATE_TRAIN_SHAPES + GATE_LOOP_SHAPES
                                                       + GATE_RANK_SHAPES
                                                       + PAPER_SHAPES["convlstm_gates_bwd"])]
                   + [(GATE_RAGGED_SHAPE, 0), (UNVECTORED_SHAPE, 0), (GATE_TRAIN_SHAPES[0], 1)]]
-        cases += [("fused_norm_act", s, o, norm_inputs(s, dtype, gen, o),
+        cases += [("fused_norm_act", s, o, norm_inputs(s, dtype, gen),
                    fused_batch_norm_leaky_relu, _batch_norm_leaky_relu)
                   for s, o in [(s, 0) for s in unique(NORM_SHAPES + EVAL_NORM_SHAPES
                                                       + PARITY_NORM_SHAPES
@@ -918,33 +945,38 @@ def check_kernels(gen) -> dict:
         widths = {name: set() for name in errors}
         ragged_norms = []
         for name, shape, offset, args, kernel, plain in cases:
-            got, want = kernel(*args), plain(*args)
+            kernel_args = stored(args, offset)
+            got, want = kernel(*kernel_args), plain(*args)
             torch.cuda.synchronize()
             err = compare(name, shape, dtype, got, want)
+            for g in got if isinstance(got, tuple) else (got,):
+                require(g.is_contiguous(memory_format=torch.channels_last),
+                        f"{name} {shape}: output strides {g.stride()}")
             errors[name] = max(errors[name], err)
-            # The width the wrapper chose: K1 walks C*H*W of c and gates, K2
-            # C*H*W of its inputs and outputs, in packs of GATE_PACK; K3 H*W
-            # of x in 16-byte packs.
-            if name == "convlstm_gates":
-                width = build.vector_width(math.prod(shape[1:]), args[1], args[0],
-                                           elements=GATE_PACK)
-            elif name == "convlstm_gates_bwd":
-                width = build.vector_width(math.prod(shape[1:]), args[1], args[0], *args[2:],
-                                           *got, elements=GATE_PACK)
-            else:
-                width = build.vector_width(math.prod(shape[2:]), args[0],
-                                           elements=16 // args[0].element_size())
+            width = vector_width(name, kernel_args, got if isinstance(got, tuple) else (got,))
             require(width == 1 or not (offset or shape == UNVECTORED_SHAPE),
                     f"{name} {shape} offset {offset}: vector width {width}")
-            if name == "fused_norm_act" and math.prod(shape[2:]) == RAGGED_NORM_HW:
+            if name == "fused_norm_act" and shape[1] == RAGGED_NORM_CHANNELS:
                 ragged_norms.append(width)
             widths[name].add(width)
             emit(phase="kernel_check", kernel=name, shape=shape, storage_offset=offset,
                  dtype=DTYPE_NAMES[dtype], vector_width=width, max_abs_err=err)
         require(all(w - {1} for w in widths.values()), f"{dtype}: vector widths {widths}")
-        # Breakout's 13x10 K3 launches, whose rows no pack divides.
+        # K3 launches whose runs of channels no pack divides.
         require(ragged_norms and set(ragged_norms) == {1},
-                f"{dtype}: K3 at H*W {RAGGED_NORM_HW} took widths {ragged_norms}")
+                f"{dtype}: K3 at {RAGGED_NORM_CHANNELS} channels took widths {ragged_norms}")
+    # The one storage the kernels take: contiguous NCHW is refused.
+    for kernel, args in ((fused_lstm_gates, gate_inputs(GATE_SHAPES[0], torch.bfloat16, gen)),
+                         (fused_lstm_gates_bwd,
+                          gate_backward_inputs(GATE_TRAIN_SHAPES[0], torch.bfloat16, gen)),
+                         (fused_batch_norm_leaky_relu,
+                          norm_inputs(NORM_SHAPES[0], torch.bfloat16, gen))):
+        try:
+            kernel(*args)
+        except ValueError as e:
+            require("channels-last" in str(e), f"{kernel.__name__}: {e}")
+        else:
+            raise AssertionError(f"{kernel.__name__} took contiguous NCHW tensors")
     return errors
 
 
@@ -1082,16 +1114,23 @@ def check_gate_autograd(gen) -> None:
     backward) against autograd through the plain gate math, which
     differentiates sigmoid and tanh in its own order of operations: 1e-5
     in f32."""
-    gates, c, dh, dc = gate_backward_inputs(GATE_RAGGED_SHAPE, torch.float32, gen)
-    grads = []
-    for fn in (fused_lstm_gates, _gate_math):
-        g, cell = gates.clone().requires_grad_(), c.clone().requires_grad_()
-        grads.append(torch.autograd.grad(fn(g, cell), (g, cell), (dh, dc)))
-    err = max((a - b).abs().max().item() for a, b in zip(*grads))
-    for a, b in zip(*grads):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
-    emit(phase="autograd_check", function="_FusedGates", shape=GATE_RAGGED_SHAPE,
-         dtype="f32", max_abs_err=err, tolerance=1e-5)
+    gates, c, dh, dc = stored(gate_backward_inputs(GATE_RAGGED_SHAPE, torch.float32, gen))
+    # Also with h' alone taking a cotangent (after the last step), where the
+    # function makes dc's zeros in the inputs' storage.
+    for cell_cotangent in (True, False):
+        grads = []
+        for fn in (fused_lstm_gates, _gate_math):
+            g, cell = gates.clone().requires_grad_(), c.clone().requires_grad_()
+            outputs = fn(g, cell)
+            grads.append(torch.autograd.grad(outputs if cell_cotangent else outputs[:1],
+                                             (g, cell), (dh, dc) if cell_cotangent else (dh,)))
+        err = max((a - b).abs().max().item() for a, b in zip(*grads))
+        for a, b in zip(*grads):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+            require(a.is_contiguous(memory_format=torch.channels_last),
+                    f"gradient strides {a.stride()}")
+        emit(phase="autograd_check", function="_FusedGates", shape=GATE_RAGGED_SHAPE,
+             dtype="f32", cell_cotangent=cell_cotangent, max_abs_err=err, tolerance=1e-5)
 
 
 def check_frame(frame: np.ndarray, shape) -> None:
@@ -1175,14 +1214,15 @@ def route_parity(obs: np.ndarray, actions: np.ndarray, make=None, run: str = "01
 
 
 def kernel_time(name, shape, kernel, plain, make_args, bytes_moved, operations) -> dict:
-    """Device time of one bf16 launch at ``shape``, warm (the same inputs
-    back to back, in L2) and cold (rotating over distinct input sets that
-    total ``COLD_BYTES``, so that each launch reads its inputs from HBM),
-    beside the bound and the plain version's warm time; emits them."""
-    args = make_args()
+    """Device time of one bf16 launch at ``shape`` on channels-last inputs,
+    warm (the same inputs back to back, in L2) and cold (rotating over
+    distinct input sets that total ``COLD_BYTES``, so that each launch
+    reads its inputs from HBM), beside the bound and the plain version's
+    warm time; emits them."""
+    args = stored(make_args())
     bound, bound_by = bound_ms(bytes_moved, operations)
     ms = device_ms(lambda: kernel(*args))
-    sets = [args] + [make_args() for _ in range(math.ceil(COLD_BYTES / bytes_moved))]
+    sets = [args] + [stored(make_args()) for _ in range(math.ceil(COLD_BYTES / bytes_moved))]
     turn = itertools.cycle(sets)
     cold_ms = device_ms(lambda: kernel(*next(turn)))
     del sets, turn
@@ -1226,8 +1266,9 @@ def time_kernels(gen) -> dict:
 
 
 def time_loop_kernels(gen) -> None:
-    """Phase 6c: K1 and K2 at the loop's batch of 8, and K3 at the three
-    largest shapes of an evaluation batch (bf16, warm and cold)."""
+    """Phase 6c: K1 and K2 at the loop's batch of 8 (the ``bair.train``
+    cell's), and K3 at the three largest shapes of an evaluation batch
+    (bf16, warm and cold)."""
     dtype, size = torch.bfloat16, 2
     for shape in unique(GATE_LOOP_SHAPES):
         elements = math.prod(shape)
@@ -1304,6 +1345,16 @@ def profile_steps(step, steps: int = 10) -> tuple:
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      key=lambda k: -k[1])
     return kernels, wall_ms
+
+
+def layout_transposes(kernels) -> list:
+    """The kernels of a profiled step (``profile_steps``' rows) that
+    convert between NCHW and NHWC (``profile_step``'s ``layout_transpose``
+    group: cuDNN's ``nchwToNhwc``, ``nhwcToNchw`` and ``tensorTransform``),
+    each with its ms and calls per step: none where every tensor is in
+    the model's storage."""
+    return [dict(kernel=name[:120], ms=ms, calls=calls) for name, ms, calls in kernels
+            if kernel_group(name) == "layout_transpose"]
 
 
 def synchronised_ms(call, count: int, warm: int = 5) -> list:
@@ -1387,17 +1438,17 @@ def time_route(model, obs: np.ndarray, actions: np.ndarray) -> dict:
                  card=nvidia_smi())
     emit(phase="route_time", dtype="bf16", **route)
     emit(phase="step_breakdown", graphed=breakdown(graphed_kernels, 20),
-         eager=breakdown(eager_kernels, 20))
+         eager=breakdown(eager_kernels, 20),
+         graphed_transposes=layout_transposes(graphed_kernels),
+         eager_transposes=layout_transposes(eager_kernels))
     return route
 
 
 def reset_launches() -> None:
     """Sets every kernel's count to 0 (``read_launches`` reads K1-K3's;
     K4 runs in the detector alone, which reads its own)."""
-    fused_lstm_gates.launches = 0
-    fused_lstm_gates_bwd.launches = 0
-    fused_batch_norm_leaky_relu.launches = 0
-    nms_keep.launches = 0
+    for f in graphs.COUNTED:
+        f.launches = 0
 
 
 def read_launches() -> dict:
@@ -1598,15 +1649,25 @@ def time_train(trainer: Trainer, batch, way: str, run: str = "01_bair",
                  kernels_per_step=sum(k[2] for k in kernels) if kernels else None)
     emit(phase="train_time", run=run, dtype="bf16", way=way, **route)
     if kernels:
-        emit(phase="train_step_breakdown", run=run, way=way, **breakdown(kernels, 25))
+        emit(phase="train_step_breakdown", run=run, way=way, **breakdown(kernels, 25),
+             transposes=layout_transposes(kernels))
     return route
 
 
 def time_train_both_ways(graphed: Trainer, batch) -> dict:
     """Phase 9b both ways: ``graphed`` (phase 7's trainer, past its
-    captures), then the op-by-op trainer from the same seed past its
-    pretraining step, as phase 6 times the play route both ways."""
+    captures; its graph is released after), then the op-by-op trainer from
+    the same seed past its pretraining step, as phase 6 times the play
+    route both ways."""
     route = {"graphed": time_train(graphed, batch, "graphed")}
+    # The graph's pool goes first, as phases 19 and 20 free theirs: the
+    # graphed trainer's process holds 30.1 GiB reserved and the op-by-op
+    # step's cache reserves 50.7 GiB, more than the card's 79.2 together.
+    # Both steps' live peak is 46.5-46.7 GiB; the rest is free blocks the
+    # allocator keeps (PERF.md, section 6, PR 22).
+    graphed.drop_program()
+    gc.collect()
+    torch.cuda.empty_cache()
     eager = flagship_trainer(graphs.Eager)
     for _ in range(2):  # pretraining, then the first full-phase step
         eager.train_step(batch)
@@ -2802,8 +2863,9 @@ class KernelShapes:
 
 
 def check_kernels_at(shapes: dict, gen) -> dict:
-    """K1, K2 and K3 bit for bit against their plain versions at each
-    recorded (shape, dtype); returns the largest error of each."""
+    """K1, K2 and K3 on channels-last inputs, bit for bit against their
+    plain versions at each recorded (shape, dtype); returns the largest
+    error of each."""
     cases = {"convlstm_gates": (gate_inputs, fused_lstm_gates, _gate_math),
              "convlstm_gates_bwd": (gate_backward_inputs, fused_lstm_gates_bwd, _gate_math_bwd),
              "fused_norm_act": (norm_inputs, fused_batch_norm_leaky_relu,
@@ -2813,7 +2875,7 @@ def check_kernels_at(shapes: dict, gen) -> dict:
         make_args, kernel, plain = cases[name]
         for shape, dtype in sorted(recorded, key=str):
             args = make_args(shape, dtype, gen)
-            got, want = kernel(*args), plain(*args)
+            got, want = kernel(*stored(args)), plain(*args)
             torch.cuda.synchronize()
             errors[name] = max(errors[name], compare(name, shape, dtype, got, want))
     return errors
@@ -4348,8 +4410,12 @@ PAPER_TRAIN_STEPS = 3
 # whose rounding (2.2 * 2**-23 = 2.6e-7 per operation) the two devices'
 # summation orders leave apart (1.4e-7 between an H100 and the CPU).
 PAPER_TERMS_ATOL = 1e-6
-# Breakout's R runs at 13x10: an H*W of 130, no multiple of K3's packs.
+# Breakout's R runs at 13x10, an H*W of 130 that only Breakout's K3 shapes
+# have (a CPU test holds the paper shapes to it).
 RAGGED_NORM_HW = 13 * 10
+# The channels of the E's last BatchNorm (state features + attention) in
+# BAIR's and Breakout's models, whose channels-last runs no pack divides.
+RAGGED_NORM_CHANNELS = 65
 
 
 @dataclasses.dataclass(frozen=True)
@@ -4964,7 +5030,8 @@ def check_norm_call(model, gen) -> None:
 
     norm = next(m for m in model.modules()
                 if isinstance(m, BatchNorm) and m.activation == "leaky_relu")
-    x = on_card((1, norm.weight.shape[0], 64, 64), torch.bfloat16, gen)
+    x = on_card((1, norm.weight.shape[0], 64, 64), torch.bfloat16, gen).contiguous(
+        memory_format=torch.channels_last)
     with torch.no_grad():
         norm(x)
         torch.cuda.synchronize()

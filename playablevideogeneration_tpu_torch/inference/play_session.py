@@ -83,12 +83,10 @@ class PlaySession:
             self.carry, self.window = self.model.init_play(1), window
             return self
         if self.window is None or self.window.shape != window.shape:
-            # New static buffers: the window as an NHWC view of NCHW
-            # storage, as the steps return it.
-            b, h, w, c = window.shape
+            # New static buffers: the window in NHWC storage, the model's
+            # channels-last storage, as the steps return it.
             self.carry = self.model.init_play(1)
-            self.window = torch.empty((b, c, h, w), dtype=window.dtype,
-                                      device=self.device).permute(0, 2, 3, 1)
+            self.window = torch.empty_like(window)
             self._programs = {}
         else:
             for static, initial in zip(self._state()[:-1],

@@ -6,11 +6,16 @@ Counterpart of ``playablevideogeneration_tpu/models/caddy.py``: E
 ``play_step`` for interactive generation and ``forward_full_model`` and
 ``forward_pretraining`` for training.
 
-The modules work in NCHW.  ``init_play`` and ``play_step`` keep the JAX
-package's NHWC layout at their boundary, handing out NHWC views of NCHW
-storage so that nothing is copied between steps.  The training forwards
-take and return channels-first sequences (B, T, C, H, W); the trainer
-converts the loader's NHWC batch once.
+The modules index their tensors (N, C, H, W) and keep them in
+channels-last storage (``models.layers``), the JAX package's NHWC in
+memory.  ``init_play`` and ``play_step`` keep the JAX package's NHWC
+shapes at their boundary: a permutation of the same storage, so that
+nothing is copied between steps.  The training forwards take and return
+channels-first sequences (B, T, C, H, W) stored channels-last; the
+trainer's view of the loader's NHWC batch is one, and the frames, states
+and hidden states the forwards stack over time are joined into the same
+storage (``utils.tensor_ops.stack``), so that flattening the time into
+the batch is a view.
 
 The JAX ``lax.scan`` over time is a Python loop over the T-1 steps.  With
 ``checkpoint_steps`` each step runs under ``torch.utils.checkpoint``, the
@@ -58,7 +63,9 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 def _nchw(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    return x.permute(0, 3, 1, 2).to(dtype).contiguous()
+    """(B, H, W, C) -> (B, C, H, W) in ``dtype``, channels-last: a view of
+    NHWC storage, copied only when the storage is not NHWC."""
+    return x.permute(0, 3, 1, 2).to(dtype).contiguous(memory_format=torch.channels_last)
 
 
 class Caddy(nn.Module):
@@ -135,7 +142,7 @@ class Caddy(nn.Module):
         carry, hidden = self.dynamics_network(
             carry, state, action_onehot.to(self.dtype), variation.to(self.dtype))
         frame, _ = self.rendering_network(hidden)
-        next_observation = torch.cat([frame, obs[:, :-3]], dim=1)
+        next_observation = tops.cat([frame, obs[:, :-3]], dim=1)
         carry = tuple((_nhwc(h), _nhwc(c)) for h, c in carry)
         return carry, _nhwc(frame), _nhwc(next_observation)
 
@@ -233,12 +240,15 @@ class Caddy(nn.Module):
             raise NotImplementedError(
                 "pretraining_detach is not supported by the full model")
         b, t = observations.shape[:2]
+        # Cast whole, then sliced: a cast of a slice of the time axis would
+        # be stored channels-first.
+        observations = observations.to(self.dtype)
         front = self._encode_and_act(observations, actions, gumbel_temperature, generator,
                                      action_sampler, variation_sampler, ensemble_index)
         states, attention = front["states"], front["attention"]
         action = front["action_samples"].to(self.dtype)
         variation = front["variations"].to(self.dtype)
-        gt_window = observations[:, 1:].to(self.dtype)
+        gt_window = observations[:, 1:]
 
         def step(is_gt, carry, window, cur_state, action, variation, gt_state, gt_att,
                  gt_window):
@@ -246,8 +256,12 @@ class Caddy(nn.Module):
             recon_full, recons = self.rendering_network(hidden)
             # Slide the stacked window: newest frame first, oldest 3
             # channels dropped.
-            new_window = gt_window if is_gt else torch.cat(
-                [recon_full, window[:, :-3]], dim=1)
+            if is_gt:
+                # A slice of the sequence: compacted here, where the
+                # encoder's first convolution would copy it.
+                new_window = gt_window.contiguous(memory_format=torch.channels_last)
+            else:
+                new_window = tops.cat([recon_full, window[:, :-3]], dim=1)
             # The window is re-encoded on every step, ground-truth steps
             # included, so the BatchNorm statistics see what the JAX scan's
             # see; ground-truth steps then select the up-front encoding.
@@ -257,7 +271,7 @@ class Caddy(nn.Module):
             return carry, new_window, next_state, next_att, hidden, recons
 
         carry = self.dynamics_network.init_carry(b)
-        window = observations[:, 0].to(self.dtype)
+        window = observations[:, 0]
         cur_state = states[:, 0]
         hiddens, recons, next_states, next_atts = [], [], [], []
         for i in range(t - 1):
@@ -270,11 +284,11 @@ class Caddy(nn.Module):
             next_states.append(cur_state)
             next_atts.append(next_att)
 
-        multires = [torch.stack(level, dim=1) for level in zip(*recons)]
-        reconstructed_states = torch.cat(
-            [states[:, 0:1], torch.stack(next_states, dim=1)], dim=1)
-        reconstructed_attention = torch.stack(next_atts, dim=1)
-        complete_attention = torch.cat([attention[:, 0:1], reconstructed_attention], dim=1)
+        multires = [tops.stack(level, dim=1) for level in zip(*recons)]
+        reconstructed_states = tops.cat(
+            [states[:, 0:1], tops.stack(next_states, dim=1)], dim=1)
+        reconstructed_attention = tops.stack(next_atts, dim=1)
+        complete_attention = tops.cat([attention[:, 0:1], reconstructed_attention], dim=1)
         # Actions re-estimated on the reconstructed sequence, for the MI loss.
         (r_logits, r_dirs_dist, r_sampled_dirs, r_states_dist,
          r_sampled_states) = self.action_networks(ensemble_index)(
@@ -285,7 +299,7 @@ class Caddy(nn.Module):
             multiresolution_reconstructed_observations=multires,
             reconstructed_states=reconstructed_states,
             states=states,
-            hidden_states=torch.stack(hiddens, dim=1),
+            hidden_states=tops.stack(hiddens, dim=1),
             selected_actions=front["selected_actions"],
             action_logits=front["logits"],
             action_samples=front["action_samples"],
@@ -316,7 +330,10 @@ class Caddy(nn.Module):
                                      action_sampler, variation_sampler, ensemble_index)
         states, attention = front["states"], front["attention"]
 
-        flat_recon_hidden = self.state_to_hidden(tops.flatten(states))
+        # The states are a slice of the encoder's channels: compacted here,
+        # where the convolution would copy them.
+        flat_recon_hidden = self.state_to_hidden(
+            tops.flatten(states).contiguous(memory_format=torch.channels_last))
         _, flat_multires = self.rendering_network(flat_recon_hidden)
         multires = [tops.fold(r, t) for r in flat_multires]
 
@@ -347,7 +364,7 @@ class Caddy(nn.Module):
             multiresolution_reconstructed_observations=multires,
             reconstructed_states=reconstructed_states,
             states=states,
-            hidden_states=torch.stack(hiddens, dim=1),
+            hidden_states=tops.stack(hiddens, dim=1),
             reconstructed_hidden_states=tops.fold(flat_recon_hidden, t),
             selected_actions=front["selected_actions"],
             action_logits=front["logits"],
@@ -371,8 +388,8 @@ class Caddy(nn.Module):
         seqs: List[torch.Tensor] = [observations]
         for k in range(1, self.observation_stacking):
             repeated_first = observations[:, 0:1].expand(-1, k, -1, -1, -1)
-            seqs.append(torch.cat([repeated_first, observations[:, :-k]], dim=1))
-        return torch.cat(seqs, dim=2)
+            seqs.append(tops.cat([repeated_first, observations[:, :-k]], dim=1))
+        return tops.cat(seqs, dim=2)
 
 
 @torch.no_grad()

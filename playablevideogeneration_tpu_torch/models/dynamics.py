@@ -23,7 +23,8 @@ from playablevideogeneration_tpu_torch.models.layers import (
     channelwise_concat,
 )
 
-# ((h0, c0), (h1, c1), (h2, c2)) for the three ConvLSTM blocks, NCHW
+# ((h0, c0), (h1, c1), (h2, c2)) for the three ConvLSTM blocks, (B, C, H, W)
+# stored channels-last
 DynamicsCarry = Tuple[LSTMState, LSTMState, LSTMState]
 
 

@@ -1,8 +1,15 @@
-"""Convolutional building blocks in NCHW.
+"""Convolutional building blocks in channels-last storage.
 
 Counterpart of ``playablevideogeneration_tpu/models/layers.py``; submodules
 carry the Flax names (``conv1``, ``bn1``, ``shortcut_conv``, ``cell.gates``
 ...) so the weight bridge (``utils/jax_weights.py``) is a renaming.
+
+Activations are indexed (N, C, H, W) and stored channels-last
+(``torch.channels_last``), as the JAX package's NHWC arrays are, and a
+convolution's weight is stored channels-last from its construction on, so
+that cuDNN runs its NHWC convolutions with no transposing copy of an input,
+an output or a filter.  Where ``torch.cat`` would fall back to
+channels-first, the blocks join tensors with ``utils.tensor_ops.cat``.
 
 Parameters are f32 and the blocks compute in their ``dtype``, as every
 JAX layer does with ``param_dtype=float32``: a convolution casts its f32
@@ -37,6 +44,7 @@ from playablevideogeneration_tpu_torch.ops.cuda.fused_norm_act import (
     fused_batch_norm_leaky_relu,
 )
 from playablevideogeneration_tpu_torch.parallel import mesh
+from playablevideogeneration_tpu_torch.utils import tensor_ops as tops
 
 EPS = 1e-5
 # flax's BatchNorm(momentum=0.9) keeps 0.9 of the running statistic per
@@ -92,6 +100,8 @@ class Conv2d(_CastParameters, nn.Conv2d):
                  dtype: torch.dtype):
         super().__init__(in_planes, out_planes, kernel_size, padding=kernel_size // 2,
                          bias=bias)
+        self.weight = nn.Parameter(self.weight.detach().contiguous(
+            memory_format=torch.channels_last))
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -169,7 +179,8 @@ class ColumnParallel(_CastParameters, nn.Module):
             else:
                 layer = Conv2d(weight.shape[1], weight.shape[0], weight.shape[2],
                                self.bias is not None, self.compute_dtype)
-        layer.weight = nn.Parameter(weight)
+        layer.weight = nn.Parameter(weight if self.padding is None else weight.contiguous(
+            memory_format=torch.channels_last))
         if self.bias is not None:
             layer.bias = nn.Parameter(self.bias.detach().clone())
         return layer
@@ -384,13 +395,14 @@ class FinalBlock(nn.Module):
 
 
 def channelwise_concat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Concatenates NCHW tensors and (B, F) vectors along channels,
-    broadcasting vectors over the spatial dims."""
+    """Concatenates (B, C, H, W) tensors and (B, F) vectors along channels,
+    broadcasting vectors over the spatial dims, into channels-last
+    storage."""
     spatial = next((t for t in tensors if t.dim() == 4), None)
     if spatial is None:
         raise ValueError("At least one input must have spatial dimensions")
     height, width = spatial.shape[2], spatial.shape[3]
-    return torch.cat([
+    return tops.cat([
         t if t.dim() == 4 else t[:, :, None, None].expand(-1, -1, height, width)
         for t in tensors], dim=1)
 
@@ -408,7 +420,7 @@ class ConvLSTMCell(nn.Module):
 
     def forward(self, carry: LSTMState, x: torch.Tensor) -> Tuple[LSTMState, torch.Tensor]:
         h, c = carry
-        new_h, new_c = fused_lstm_gates(self.gates(torch.cat([x, h], dim=1)), c)
+        new_h, new_c = fused_lstm_gates(self.gates(tops.cat([x, h], dim=1)), c)
         return (new_h, new_c), new_h
 
 
@@ -425,9 +437,11 @@ class ConvLSTM(nn.Module):
 
     def init_carry(self, batch_size: int) -> LSTMState:
         """The initial states in the model dtype, repeated over the batch
-        into contiguous tensors; differentiable, as the states are learned."""
-        return tuple(s.to(self.dtype)[None].repeat(batch_size, 1, 1, 1)
-                     for s in (self.initial_hidden_state, self.initial_cell_state))
+        into channels-last tensors; differentiable, as the states are
+        learned."""
+        return tuple(s.to(self.dtype)[None].expand(batch_size, -1, -1, -1).contiguous(
+            memory_format=torch.channels_last)
+            for s in (self.initial_hidden_state, self.initial_cell_state))
 
     def forward(self, carry: LSTMState, x: torch.Tensor) -> Tuple[LSTMState, torch.Tensor]:
         return self.cell(carry, x)

@@ -24,6 +24,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Sequence
 
+import torch
+
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -74,6 +76,20 @@ def vector_width(length: int, *tensors, elements: int) -> int:
             or any(t.data_ptr() % (elements * size) for t in tensors)):
         return 1
     return elements
+
+
+def channels_last(*tensors) -> bool:
+    """The storage of an elementwise kernel's (N, C, H, W) tensors: True
+    where every tensor is channels-last-contiguous (the CUDA kernels' one
+    storage; a tensor whose channels or pixels are one is both), False
+    where every tensor is contiguous NCHW (which only the plain versions
+    take).  Any other strides raise."""
+    if all(t.is_contiguous(memory_format=torch.channels_last) for t in tensors):
+        return True
+    if all(t.is_contiguous() for t in tensors):
+        return False
+    raise ValueError("the tensors must all be channels-last-contiguous or all contiguous "
+                     f"NCHW, got strides {[t.stride() for t in tensors]}")
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:

@@ -328,6 +328,11 @@ class GatherFromModel(torch.autograd.Function):
 
 
 def _all_gather(x: torch.Tensor, dim: int, info: MeshInfo) -> torch.Tensor:
+    """The model group's ``x`` concatenated along ``dim``; images (N, C, H,
+    W) along their channels as (N, H, W, C), so that the result is stored
+    channels-last, as the model keeps its activations."""
+    if x.dim() == 4 and dim == 1:
+        return _all_gather(x.movedim(1, -1), -1, info).movedim(-1, 1)
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(info.model_size)]
     dist.all_gather(parts, x, group=info.model_group)

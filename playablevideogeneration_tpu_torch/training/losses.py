@@ -1,7 +1,8 @@
 """Loss library.
 
 Counterpart of ``playablevideogeneration_tpu/training/losses.py``.  Images
-are channels-first: sequences (B, T, C, H, W), frames (N, C, H, W).  The
+are indexed channels-first, sequences (B, T, C, H, W) and frames (N, C, H,
+W), and stored channels-last, as the model emits them.  The
 smoothed mutual-information estimator takes and returns its joint matrix
 as explicit state.
 """
@@ -231,7 +232,7 @@ def motion_weight_mask(observations: torch.Tensor, reconstructed_observations: t
     observations = observations.detach()[:, :, :3]
     rec = reconstructed_observations.detach()
     if rec.shape[1] != observations.shape[1]:
-        rec = torch.cat([observations[:, 0:1], rec.to(observations.dtype)], dim=1)
+        rec = tops.cat([observations[:, 0:1], rec.to(observations.dtype)], dim=1)
     mask = (torch.abs(observations[:, 1:] - observations[:, :-1])
             + torch.abs(rec[:, 1:] - rec[:, :-1]))
     mask = mask.sum(dim=2, keepdim=True) + weight_bias

@@ -109,7 +109,7 @@ def test_conv_lstm_two_steps():
     with torch.no_grad():
         torch_carry = torch_lstm.init_carry(b)
         for want, got in zip(jax_carry, torch_carry):
-            assert got.is_contiguous()
+            assert got.is_contiguous(memory_format=torch.channels_last)
             np.testing.assert_array_equal(nhwc(got), np.asarray(want))
         for x in xs:
             jax_carry, want = jax_lstm.apply(variables, jax_carry, jnp.asarray(x))

@@ -250,8 +250,8 @@ def test_vector_width_needs_whole_aligned_packs(dtype, elements, length, offset,
 
 
 def test_wrappers_reject_planes_beyond_32_bit_offsets():
-    """K1's and K2's offsets inside a batch slice, and K3's planes and
-    offsets inside a plane, are 32-bit."""
+    """K1's and K2's offsets inside a batch slice, and K3's batch rows and
+    offsets inside a row, are 32-bit."""
     c = torch.empty(1, 2 ** 29, 1, 1, device="meta")
     gates = torch.empty(1, 2 ** 31, 1, 1, device="meta")
     with pytest.raises(ValueError, match=r"2\*\*31"):
