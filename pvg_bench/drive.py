@@ -18,12 +18,40 @@ Each driver builds the program from the seed, warms up every shape the mix
 uses, measures for the window, optionally traces a stretch after it, reads
 the device's peak memory, frees the program and then checks what the
 window's path produced against the reference (``pvg_bench.reference``).
+
+Another kind of request is a file of its own, ``drivers/<driver>.py``,
+found by the mix's ``driver`` where no driver here has that name
+(``load_driver``).  It defines ``run(cell: Cell) -> Outcome`` and follows
+the steps above; ``run.py`` and ``readers.py`` then take its ``Outcome``
+unchanged where it holds:
+
+- ``end_to_end``: a value for each end-to-end metric but ``setup_s`` that
+  lists the cell under its ``workloads`` in ``BENCHMARK.json``, over all
+  the work and all the time of the window;
+- ``context["window_start"]`` and ``["window_s"]``, the window's start on
+  ``time.perf_counter`` (set-up ends there) and its length, and
+  ``["traced_end"]``, when the traced stretch (or the window, untraced)
+  ended; ``frames`` and ``traced_frames``, or ``steps`` and
+  ``traced_steps``, the work of the window and of the traced stretch;
+- ``checks``: ``check.judged(numbers, cell.limits)``, each compared number
+  beside its limit from ``limits/<workload>.json``, as ``check.passed``
+  reads them, computed once the window has closed and the program is
+  freed;
+- ``memory_peak_bytes``: ``peak_memory`` read before the program is freed;
+- ``trace``: with ``cell.trace``, ``traced_twice`` of a stretch after the
+  window, else None.
+
+Such a driver checks against a plain float32 reference of its own, a
+module under ``reference/`` that imports nothing of the port and nothing
+of JAX.
 """
 from __future__ import annotations
 
 import contextlib
 import gc
+import importlib.util
 import math
+import os
 import statistics
 import time
 from dataclasses import dataclass, field
@@ -475,7 +503,22 @@ def play_gaps(config: dict, traffic: dict, seed: int, device, served: Dict[int, 
 
 
 DRIVERS = {"train": _train, "interactive": _play, "rollout": _play}
+DRIVER_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "drivers")
+
+
+def load_driver(name: str) -> Callable[[Cell], Outcome]:
+    """The built-in driver ``name``, else ``run`` of ``drivers/<name>.py``."""
+    if name in DRIVERS:
+        return DRIVERS[name]
+    path = os.path.join(DRIVER_DIR, f"{name}.py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no driver {name!r}: none built in ({', '.join(DRIVERS)}) "
+                                f"and no file {path}")
+    spec = importlib.util.spec_from_file_location(f"pvg_bench.drivers.{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.run
 
 
 def run(cell: Cell) -> Outcome:
-    return DRIVERS[cell.traffic["driver"]](cell)
+    return load_driver(cell.traffic["driver"])(cell)

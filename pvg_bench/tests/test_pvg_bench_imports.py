@@ -1,10 +1,14 @@
 """Nothing the benchmark runs loads JAX or the JAX package; the reference
 loads nothing of the port.  Top-level names are compared whole, since the
 port's name begins with the JAX package's."""
+import glob
+import os
 import subprocess
 import sys
 
-from pvg_bench import spec
+import pytest
+
+from pvg_bench import drive, spec
 from pvg_bench.run import forbidden_modules
 
 HARNESS = ["pvg_bench.run", "pvg_bench.drive", "pvg_bench.readers", "pvg_bench.control",
@@ -16,6 +20,15 @@ PORT = ["playablevideogeneration_tpu_torch.training.trainer",
         "playablevideogeneration_tpu_torch.data.transforms",
         "playablevideogeneration_tpu_torch.models.caddy",
         "playablevideogeneration_tpu_torch.models.vgg"]
+
+
+# Every module of the references, and every driver file, whatever later
+# changes add.
+REFERENCES = sorted(f"pvg_bench.reference.{os.path.basename(p)[:-3]}"
+                    for p in glob.glob(os.path.join(spec.PACKAGE, "reference", "*.py"))
+                    if not p.endswith("__init__.py"))
+DRIVER_FILES = sorted(os.path.basename(p)[:-3]
+                      for p in glob.glob(os.path.join(drive.DRIVER_DIR, "*.py")))
 
 
 def _loaded_after(modules, extra=""):
@@ -43,8 +56,15 @@ def test_harness_and_port_load_no_jax():
     assert forbidden_modules(loaded) == []
 
 
-def test_reference_loads_nothing_of_the_port():
-    loaded = _loaded_after(["pvg_bench.reference.model", "pvg_bench.reference.train",
-                            "pvg_bench.reference.data"])
+@pytest.mark.parametrize("module", REFERENCES)
+def test_reference_loads_nothing_of_the_port(module):
+    loaded = _loaded_after([module])
     assert forbidden_modules(loaded) == []
     assert "playablevideogeneration_tpu_torch" not in loaded
+
+
+def test_driver_files_load_no_jax():
+    loaded = _loaded_after(["pvg_bench.drive"], "".join(
+        f"from pvg_bench.drive import load_driver; load_driver({name!r})\n"
+        for name in DRIVER_FILES))
+    assert forbidden_modules(loaded) == []
