@@ -13,7 +13,9 @@ host-side numpy and scipy:
   the average centre distance.
 
 The Faster R-CNN backend (``evaluation.detector: frcnn``) is
-``metrics/frcnn.py``, on the device.
+``metrics/frcnn.py``, on the device.  ``TennisPlayerDetector``'s court
+filter and tallest-box choice over a sequence's boxes are the span
+``detect.select`` (``utils.tracing``).
 """
 from __future__ import annotations
 
@@ -21,7 +23,10 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from playablevideogeneration_tpu_torch.utils import tracing
 from playablevideogeneration_tpu_torch.utils.device import DeviceLike
+
+_SELECT = tracing.span("detect.select")
 
 
 def breakout_platform_positions(observations: np.ndarray) -> np.ndarray:
@@ -197,9 +202,10 @@ class TennisPlayerDetector:
         centers = np.full((b, t, 2), -1.0)
         for seq in range(b):
             proposals = self.backend(observations[seq])
-            for obs in range(t):
-                centers[seq, obs] = select_player_center(
-                    proposals[obs], w, h, self.rules)
+            with _SELECT:
+                for obs in range(t):
+                    centers[seq, obs] = select_player_center(
+                        proposals[obs], w, h, self.rules)
         return centers
 
 

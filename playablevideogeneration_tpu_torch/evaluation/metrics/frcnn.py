@@ -37,7 +37,8 @@ device ``make_person_box_backend`` replays the whole forward as one
 captured CUDA graph per (frames, height, width, TF32 switches)
 (``inference.graphs``), the counterpart of the JAX package's ``jax.jit``
 of the detector: one copy of the frames in, the boxes, scores and labels
-out.
+out.  A call of the backend is the span ``detect.call``, and inside it
+``detect.readback`` and ``detect.boxes`` (``utils.tracing``).
 """
 from __future__ import annotations
 
@@ -53,6 +54,7 @@ from playablevideogeneration_tpu_torch.inference import graphs
 from playablevideogeneration_tpu_torch.ops.cuda.nms_sweep import nms_keep
 # The box math's IoU, kept beside the NMS kernels whose plain version uses it.
 from playablevideogeneration_tpu_torch.ops.cuda.nms_sweep import box_iou  # noqa: F401
+from playablevideogeneration_tpu_torch.utils import tracing
 from playablevideogeneration_tpu_torch.utils.device import DeviceLike
 from playablevideogeneration_tpu_torch.utils.jax_weights import build_from_jax_variables
 from playablevideogeneration_tpu_torch.utils.tensor_ops import resize_bilinear
@@ -74,6 +76,9 @@ PERSON_LABEL = 1
 BBOX_XFORM_CLIP = math.log(1000.0 / 16)
 FPN_CHANNELS = 256
 ROI_SIZE = 7
+_CALL = tracing.span("detect.call")
+_READBACK = tracing.span("detect.readback")
+_BOXES = tracing.span("detect.boxes")
 
 
 # --------------------------------------------------------------------- #
@@ -724,7 +729,9 @@ def make_person_box_backend(variables: Dict, score_threshold: float = 0.8,
     On a CUDA device each call replays the captured forward of its (T, H,
     W, TF32 switches), a ``graphs.ProgramCache`` of them: one copy of the
     frames to the card, one replay, the three outputs read back.  On the
-    CPU it runs op by op.
+    CPU it runs op by op.  A call is the span ``detect.call``; the readback
+    and the boxes' selection are ``detect.readback`` and ``detect.boxes``
+    inside it.
 
     :param backend: for the tests and the chip check only:
         ``graphs.StandIn`` or ``graphs.Eager``; by default the device
@@ -734,13 +741,18 @@ def make_person_box_backend(variables: Dict, score_threshold: float = 0.8,
 
     def detect(frames: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         frames = np.ascontiguousarray(np.asarray(frames, np.float32)[..., :3])
-        return tuple(graphs.to_numpy(t) for t in forward(torch.from_numpy(frames)))
+        outputs = forward(torch.from_numpy(frames))
+        with _READBACK:
+            return tuple(graphs.to_numpy(t) for t in outputs)
 
     def person_boxes(frames: np.ndarray) -> list:
-        boxes, scores, labels = detect(frames)
-        return [[tuple(float(v) for v in boxes[t, i]) for i in range(boxes.shape[1])
-                 if scores[t, i] > score_threshold and labels[t, i] == PERSON_LABEL]
-                for t in range(boxes.shape[0])]
+        with _CALL:
+            boxes, scores, labels = detect(frames)
+            with _BOXES:
+                found = [[tuple(float(v) for v in boxes[t, i]) for i in range(boxes.shape[1])
+                          if scores[t, i] > score_threshold and labels[t, i] == PERSON_LABEL]
+                         for t in range(boxes.shape[0])]
+            return found
 
     person_boxes.model, person_boxes.detect, person_boxes.programs = (
         model, detect, forward.programs)

@@ -28,7 +28,15 @@ The spans, each at a host boundary (none runs inside a function that a
 - ``program.capture``: a ``graphs.Program``'s warm-up and recording;
   ``program.replay``: one call of a program;
 - ``play.call``: one call of a ``PlaySession`` method that returns frames,
-  and inside it ``play.readback``, the frames' copy to the host.
+  and inside it ``play.readback``, the frames' copy to the host;
+- ``detect.call``: one call of the Faster R-CNN person-box backend
+  (``evaluation.metrics.frcnn.make_person_box_backend``), and inside it
+  ``detect.readback`` (the boxes, scores and labels to the host, which
+  waits for the device) and ``detect.boxes`` (the score threshold and the
+  boxes as tuples); the frames' copy to the device is in the call's
+  ``program.replay``;
+- ``detect.select``: ``TennisPlayerDetector.__call__``'s court filter and
+  tallest-box choice over the boxes of a sequence.
 
 A span is one object per name in the process, kept by the code that
 enters it, so that entering costs no allocation.  It is not reentrant: the
@@ -94,4 +102,3 @@ def span(name: str) -> Span:
 def tallies() -> Dict[str, Tuple[int, float]]:
     """{name: (count, seconds)} of every span ended so far in the process."""
     return {name: (s.count, s.seconds) for name, s in list(_spans.items()) if s.count}
-
